@@ -11,8 +11,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   3. the main path at a size users run: TPC-H SF1 lineitem cardinality
      (6,001,215 rows), capacity 2000, a 2000-query warm-up through
      ``execute_many`` and 200 queries served one by one through ``execute``;
+  5. the ``connect``/``Session`` facade on phase 3's relation, locally and
+     over a four-shard ``Mesh`` on the one card: the mesh session must
+     answer bitwise like the local one and scan through the
+     ``masked_partials`` kernel once per round; then the ``range_mask_agg``
+     kernel through the scan placement over every sample batch, against
+     the fused scan;
   4. the slice against its plain path: a CUDA engine and a CPU engine on the
-     same 600,000-row data must agree.
+     same 600,000-row data must agree (run after phase 5, which reuses
+     phase 3's relation).
 The last two lines of standard output are the kernels' JSON record and the
 device record ``{"ok": true, "device": {...}}``.
 """
@@ -40,6 +47,9 @@ PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
 FLIP_FACTOR = 4.0
 K1_REPLACES = "src/repro/kernels/fused_masked_scan/kernel.py:84"
 K2_REPLACES = "src/repro/kernels/gp_batch_infer/kernel.py:27"
+K4_REPLACES = "src/repro/kernels/fused_masked_scan/kernel.py:133"
+K5_REPLACES = "src/repro/kernels/range_mask_agg/kernel.py:25"
+SF1_BATCH_T = 60_013  # tuples in one sample batch of phase 3's SF1 sample
 
 
 def log(*a):
@@ -125,13 +135,15 @@ def bound(n_bytes, n_ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def report(name, shape, ms, plain_ms, n_bytes, n_ops, dtype, err):
+def report(name, shape, ms, plain_ms, n_bytes, n_ops, dtype, err,
+           library_ms=None):
     b_ms, b_by = bound(n_bytes, n_ops, dtype)
+    lib = "null" if library_ms is None else f"{library_ms:.6f}"
     log(f"  {name} {shape}: kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
         f"bound_ms={b_ms:.6f} ({b_by}) share_of_bound={b_ms / ms:.4f} "
-        f"max_abs_err={err:.3e} library_ms=null")
+        f"max_abs_err={err:.3e} library_ms={lib}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": err}
+            "bound_by": b_by, "max_abs_err": err, "library_ms": library_ms}
 
 
 # ------------------------------------------------------------------ phase 1
@@ -298,6 +310,91 @@ def check_k2(seed, dev):
     return records
 
 
+def check_k4(rel, seed):
+    import torch
+    from repro_torch.aqp.executor import payload_of, predicate_mask
+    from repro_torch.kernels.fused_masked_scan import ops as fms
+    from repro_torch.kernels.fused_masked_scan.ref import masked_partials_ref
+
+    log("-- K4 masked_partials (f64): count exact, sums/sumsq rtol 1e-11, "
+        "repeat bitwise, bitwise K1 on the same block")
+    rows = np.random.default_rng(seed + 7).permutation(rel.cardinality)
+    blk = rel.take(rows[:SF1_BATCH_T])
+    x, codes, meas = blk.num_normalized, blk.cat, blk.measures
+    t_n, m = meas.shape
+    records = {}
+    for q_n in (128, 4096):
+        s = _fused_snippets(rel, seed, 2000, q_n).to(rel.device)
+        mask = predicate_mask(x, codes, s)  # (T, Q) 0/1, as the mesh builds
+        got = fms.masked_partials(mask, meas)
+        again = fms.masked_partials(mask, meas)
+        want = masked_partials_ref(mask, meas)
+        k1 = fms.fused_masked_scan(x, codes, meas, s.lo, s.hi, s.cat)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), "K4 is not bitwise across runs"
+        assert torch.equal(got[:, -1], want[:, -1]), "K4 count differs"
+        assert torch.allclose(got[:, :-1], want[:, :-1], rtol=1e-11, atol=0.0)
+        assert torch.equal(got, k1), "K4 on the block's mask is not K1's bits"
+        err = float((got - want).abs().max())
+        ms = time_ms(lambda: fms.masked_partials(mask, meas), inner=10)
+        plain = time_ms(lambda: masked_partials_ref(mask, meas),
+                        reps=20 if q_n <= 128 else 5)
+        payload = payload_of(meas)
+        lib = time_ms(lambda: mask.T @ payload, inner=10)
+        p = 2 * m + 1
+        n_bytes = 8 * (t_n * q_n + t_n * m + q_n * p)
+        n_ops = 2 * t_n * q_n * p
+        records[q_n] = report("masked_partials", f"T={t_n} Q={q_n}", ms,
+                              plain, n_bytes, n_ops, "float64", err,
+                              library_ms=lib)
+        records[q_n]["device_ms"] = device_ms_per_call(
+            f"masked_partials Q={q_n}", lambda: fms.masked_partials(mask, meas))
+        del mask
+    return records
+
+
+def check_k5(rel, seed):
+    import torch
+    from repro_torch.kernels.range_mask_agg import ops as rma
+    from repro_torch.kernels.range_mask_agg.ref import range_mask_agg_ref
+
+    log("-- K5 range_mask_agg (f32): count exact, sums/sumsq rtol 1e-5, "
+        "repeat bitwise")
+    rows = np.random.default_rng(seed + 8).permutation(rel.cardinality)
+    blk = rel.take(rows[:SF1_BATCH_T])
+    f32 = torch.float32
+    x = blk.num_normalized.to(f32)
+    meas = blk.measures.to(f32)
+    payload = torch.cat([meas, meas * meas, meas.new_ones((len(meas), 1))], 1)
+    t_n, l = x.shape
+    p = payload.shape[1]
+    q_n = 128
+    s = _fused_snippets(rel, seed, 2000, q_n).to(rel.device)
+    lo, hi = s.lo.to(f32), s.hi.to(f32)
+    extra = rma.categorical_premask(blk.cat, s.cat)
+    args = (x, payload, lo, hi, extra)
+    got = rma.range_mask_agg(*args)
+    again = rma.range_mask_agg(*args)
+    want = range_mask_agg_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "K5 is not bitwise across runs"
+    assert torch.equal(got[:, -1], want[:, -1]), "K5 count differs"
+    assert torch.allclose(got[:, :-1], want[:, :-1], rtol=1e-5, atol=0.0), (
+        float(((got - want).abs() / want.abs().clamp(min=1e-30)).max()))
+    err = float((got - want).abs().max())
+    ms = time_ms(lambda: rma.range_mask_agg(*args), inner=10)
+    plain = time_ms(lambda: range_mask_agg_ref(*args))
+    n_bytes = 4 * (t_n * l + t_n * p + 2 * q_n * l + t_n * q_n + q_n * p)
+    n_ops = t_n * q_n * (2 * l + 2 * p)
+    rec = report("range_mask_agg", f"T={t_n} Q={q_n}", ms, plain, n_bytes,
+                 n_ops, "float32", err)
+    rec["device_ms"] = device_ms_per_call(
+        "range_mask_agg Q=128", lambda: rma.range_mask_agg(*args))
+    log("  library_ms is null for range_mask_agg: no single PyTorch call "
+        "computes range compares times a mask folded against a payload")
+    return rec
+
+
 # ------------------------------------------------------------------ phase 3
 def _snippet_keys_per_agg(results):
     from repro_torch.core.store import group_rows
@@ -410,7 +507,8 @@ def main_path(seed):
         f"p50 {np.percentile(lat_ms, 50):.3f} ms, "
         f"p99 {np.percentile(lat_ms, 99):.3f} ms, "
         f"mean batches_used {np.mean(used):.3f}, launches {counts}")
-    assert all(v > 0 for v in counts.values()), counts
+    assert counts["fused_masked_scan"] > 0 and counts["gp_batch_infer"] > 0, (
+        counts)
     eng.drain()
     _assert_healthy(eng)
     # Right answers: finite cells close to the exact answers over all rows,
@@ -471,7 +569,275 @@ def main_path(seed):
             "measured)")
     return counts, {"qps": 200 / serve_s,
                     "p50_ms": float(np.percentile(lat_ms, 50)),
-                    "p99_ms": float(np.percentile(lat_ms, 99))}
+                    "p99_ms": float(np.percentile(lat_ms, 99))}, rel, cfg
+
+
+# ------------------------------------------------------------------ phase 5
+N_SHARDS = 4  # logical shards of the mesh on one card
+
+
+def _spy(obj, name, sink, fn):
+    """Wrap ``obj.<name>`` so that each call's ``fn(args, out)`` goes into
+    ``sink``; the wrapped method's result is returned unchanged."""
+    orig = getattr(obj, name)
+
+    def run(*a, **kw):
+        out = orig(*a, **kw)
+        sink.append(fn(a, out))
+        return out
+
+    setattr(obj, name, run)
+
+
+def _drive_session(sess, warm, serve, tail, budget):
+    """One session's run of phase 5: the warm-up through ``execute_many``,
+    ``serve`` one by one through ``execute`` (timed), then ``tail``, a list
+    of ``(query, streamed)``, through ``stream`` or ``execute``. Returns the
+    answers in order (a stream's last one), the latencies (s), and what the
+    spies saw: each improve's ``accepted`` and each scanned block's tuple
+    count."""
+    import torch
+    from repro_torch.core.types import to_numpy
+
+    accepted, blocks = [], []
+    _spy(sess.store, "improve_groups", accepted,
+         lambda a, out: to_numpy(out.accepted))
+    _spy(sess.engine.scan, "eval_block", blocks,
+         lambda a, out: int(a[0].num_normalized.shape[0]))
+    answers = list(sess.execute_many(warm))
+    lat = []
+    for q in serve:
+        t = time.perf_counter()
+        answers.append(sess.execute(q, budget))
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+    for q, streamed in tail:
+        if not streamed:
+            answers.append(sess.execute(q, budget))
+            continue
+        parts = list(sess.stream(q, budget))
+        assert [p.final for p in parts] == [False] * (len(parts) - 1) + [
+            True], "stream: only the last answer is final"
+        assert len(parts) == parts[-1].batches_used
+        answers.append(parts[-1])
+    sess.drain()
+    return answers, lat, accepted, blocks
+
+
+def _same_answer(a, b):
+    return (a.batches_used == b.batches_used
+            and a.tuples_scanned == b.tuples_scanned
+            and [(c.estimate, c.beta2) for c in a.cells]
+            == [(c.estimate, c.beta2) for c in b.cells])
+
+
+def facade_and_mesh(rel, cfg, seed):
+    """Phase 5: ``connect`` with and without a mesh at SF1, answers bitwise
+    equal, the mesh scanning through K4 once per round."""
+    import torch
+    from repro_torch.aqp.workload import tpch_workload
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.verdict import ErrorBudget, Mesh, connect
+
+    log(f"== phase 5: the connect/Session facade, local and over a "
+        f"{N_SHARDS}-shard mesh on one card, {rel.cardinality} rows")
+    budget = ErrorBudget(target_rel_error=0.02)
+    warm = tpch_workload(seed + 6, rel.schema, 200)
+    serve = tpch_workload(seed + 7, rel.schema, 50)
+    extra = tpch_workload(seed + 8, rel.schema, 6)
+    mesh = Mesh((rel.device,) * N_SHARDS)
+    runs, e2e = {}, {}
+    for name, kw in (("local", {}), ("mesh", {"mesh": mesh})):
+        sess = connect(rel, cfg, **kw)
+        rep = sess.explain(serve[0])
+        log(f"{name}: explain scan={rep.scan_placement} "
+            f"evaluator={rep.scan_evaluator}")
+        # The local session streams the first three extra queries and
+        # executes the last three, the mesh session the other way round:
+        # each stream's last answer then meets the other session's execute
+        # of the same query on the same state.
+        tail = [(q, (i < 3) == (name == "local")) for i, q in
+                enumerate(extra)]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        answers, lat, accepted, blocks = _drive_session(
+            sess, warm, serve, tail, budget)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        counts = launch_counts()
+        lat_ms = np.asarray(lat) * 1e3
+        e2e[name] = {"qps": len(lat) / float(np.sum(lat)),
+                     "p50_ms": float(np.percentile(lat_ms, 50)),
+                     "p99_ms": float(np.percentile(lat_ms, 99))}
+        log(f"{name}: {took:.3f} s in all; serve {len(lat)} queries "
+            f"{e2e[name]['qps']:.2f} q/s, p50 {e2e[name]['p50_ms']:.3f} ms, "
+            f"p99 {e2e[name]['p99_ms']:.3f} ms; launches {counts}")
+        st = sess.stats()
+        assert not st["health"]["quarantined"], st["health"]["quarantined"]
+        _assert_healthy(sess.engine)
+        runs[name] = dict(answers=answers, accepted=accepted, blocks=blocks,
+                          counts=counts, stats=st, explain=rep)
+    loc, msh = runs["local"], runs["mesh"]
+    # Bitwise: every answer (cells, batches_used) and every improve's
+    # accepted mask of the mesh session equal the local session's; the
+    # three streams of each session end on the other's execute.
+    assert len(loc["answers"]) == len(msh["answers"])
+    diff = [i for i, (a, b) in enumerate(zip(loc["answers"], msh["answers"]))
+            if not _same_answer(a, b)]
+    assert not diff, f"mesh answers differ from local on queries {diff[:10]}"
+    assert len(loc["accepted"]) == len(msh["accepted"]) and all(
+        np.array_equal(a, b) for a, b in zip(loc["accepted"],
+                                             msh["accepted"])), "accepted"
+    # The mesh scanned through K4 once per round, never through K1.
+    st = msh["stats"]["scan"]
+    rounds = len(msh["blocks"])
+    assert st["blocks_evaluated"] == rounds > 0
+    assert msh["counts"]["masked_partials"] == rounds, (msh["counts"], rounds)
+    assert msh["counts"]["fused_masked_scan"] == 0, msh["counts"]
+    assert msh["counts"]["gp_batch_infer"] > 0, msh["counts"]
+    assert loc["counts"]["fused_masked_scan"] == len(loc["blocks"]) > 0
+    assert loc["counts"]["masked_partials"] == 0, loc["counts"]
+    # Each block pads to the next power of two (65,536 for an SF1 batch of
+    # ~60,013 tuples), which 4 divides.
+    pad = sum((1 << (t - 1).bit_length()) - t for t in msh["blocks"])
+    assert (st["kind"], st["n_shards"], st["pad_rows"], st["tuples_scanned"]
+            ) == ("sharded", N_SHARDS, pad, sum(msh["blocks"])), st
+    assert st["evaluator"] == "sharded_mask+kernel_agg", st
+    rep = msh["explain"]
+    assert rep.scan_placement == f"sharded:{N_SHARDS}xdata", rep
+    assert rep.scan_evaluator == "sharded_mask+kernel_agg", rep
+    assert loc["explain"].scan_placement == "local"
+    assert loc["explain"].scan_evaluator == "fused_masked_scan"
+    store = msh["stats"]["store"]
+    log(f"mesh: {rounds} rounds, K4 launches {msh['counts']['masked_partials']}"
+        f", pad_rows {st['pad_rows']}, tuples_scanned {st['tuples_scanned']}; "
+        "store shards " + ", ".join(f"{sh['n_keys']} keys/{sh['fill']} rows"
+                                    for sh in store["shards"]))
+    log(f"mesh answers bitwise equal to local on all {len(loc['answers'])}"
+        f" queries (cells, batches_used; accepted of {len(loc['accepted'])} "
+        "improves); each stream ended on the other session's execute")
+    e2e["round_ms"] = _scan_round_ms(rel, seed, mesh)
+    return msh["counts"], e2e
+
+
+def _scan_round_ms(rel, seed, mesh):
+    """Where the mesh's extra time goes: one scan round of a sample batch at
+    the serving shape (one tile of 128 snippets), locally (K1), over the
+    mesh (mask build, gather, K4), and the mesh's mask stage alone. Host
+    clock around a synchronised call, median of 20, in ms."""
+    import torch
+    from repro_torch.aqp.executor import (ScanPlacement,
+                                          ShardedScanPlacement,
+                                          sharded_mask)
+    from repro_torch.kernels import launch_counts
+
+    rows = np.random.default_rng(seed + 10).permutation(rel.cardinality)
+    blk = rel.take(rows[:SF1_BATCH_T])
+    s = _fused_snippets(rel, seed, 2000, 128).to(rel.device)
+    local, sharded = ScanPlacement(), ShardedScanPlacement(mesh)
+    # With no evaluator given, the local placement runs K1 on the card.
+    before = launch_counts()["fused_masked_scan"]
+    local.eval_block(blk, s)
+    assert launch_counts()["fused_masked_scan"] == before + 1
+    assert local.stats()["evaluator"] == "fused_masked_scan"
+    runs = {
+        "local": lambda: local.eval_block(blk, s),
+        "mesh": lambda: sharded.eval_block(blk, s),
+        "mesh_mask_stage": lambda: sharded_mask(
+            mesh, blk.num_normalized, blk.cat, s),
+    }
+    out = {}
+    for name, fn in runs.items():
+        for _ in range(3):
+            fn()
+        ts = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        out[name] = float(np.median(ts)) * 1e3
+    log("one scan round, T=%d Q=128 (host clock, synchronised, median of "
+        "20): " % SF1_BATCH_T + ", ".join(f"{k} {v:.3f} ms"
+                                         for k, v in out.items()))
+    return out
+
+
+def k5_on_the_scan_placement(rel, cfg, seed):
+    """K5 through ``ScanPlacement.eval_block(local_eval=
+    eval_partials_kernel)`` over every SF1 sample batch for one fused
+    workload, against K1 on the same blocks.
+
+    K5 compares in float32, as the reference kernel does; K1 in float64. A
+    tuple less than a float32 ulp outside a bound is therefore inside for
+    K5 and outside for K1 (the reference's own K5 does the same against its
+    float64 scan). Those boundary tuples are found in plain PyTorch, from
+    the two compares, and K1's partials are corrected by exactly them: the
+    counts must then be equal, and the sums and sums of squares within the
+    reference's budget (rtol 2e-4)."""
+    import torch
+    from repro_torch.aqp.executor import (ScanPlacement, payload_of,
+                                          predicate_mask)
+    from repro_torch.aqp.plan import plan_workload
+    from repro_torch.aqp.workload import tpch_workload
+    from repro_torch.core.types import pad_snippets
+    from repro_torch.kernels import RANGE_EPS, launch_counts, reset_launch_counts
+    from repro_torch.kernels.fused_masked_scan.ops import eval_partials_fused
+    from repro_torch.kernels.range_mask_agg.ops import (categorical_premask,
+                                                        eval_partials_kernel)
+    from repro_torch.verdict import connect
+
+    log("-- K5 on the scan placement: every SF1 sample batch against K1 "
+        "corrected by the float32 boundary tuples; counts equal, sums/sumsq "
+        "rtol 2e-4")
+    eng = connect(rel, cfg).engine
+    padded = pad_snippets(plan_workload(
+        eng, tpch_workload(seed + 9, rel.schema, 200)).fused).to(rel.device)
+    batches = eng.batches
+    blocks = [batches.relation.take(r) for r in batches.batch_rows]
+    place = ScanPlacement()
+    reset_launch_counts()
+    got = [place.eval_block(b, padded, local_eval=eval_partials_kernel)
+           for b in blocks]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["range_mask_agg"] == len(blocks), counts
+    assert place.stats()["evaluator"] == "range_mask_agg"
+    f32 = torch.float32
+    eps32 = torch.tensor(RANGE_EPS, dtype=f32, device=rel.device)
+    lo32, hi32 = padded.lo.to(f32), padded.hi.to(f32)
+    worst, flips, flipped = 0.0, 0, set()
+    idx = padded.measure.long()[:, None]
+    m = blocks[0].measures.shape[1]
+    for bi, (b, g) in enumerate(zip(blocks, got)):
+        want = eval_partials_fused(b.num_normalized, b.cat, b.measures,
+                                   padded)
+        x32 = b.num_normalized.to(f32)
+        in32 = ((x32[:, None, :] >= (lo32 - eps32)[None])
+                & (x32[:, None, :] <= (hi32 + eps32)[None])).all(-1)
+        diff = (in32.to(torch.float64)
+                * categorical_premask(b.cat, padded.cat).to(torch.float64)
+                - predicate_mask(b.num_normalized, b.cat, padded))
+        flips += int(diff.abs().sum())
+        flipped.update((bi, int(q)) for q in torch.nonzero(
+            diff.abs().sum(0)).flatten())
+        corr = diff.T @ payload_of(b.measures)  # (Q, 2M+1), exact 0/±1 mask
+        assert torch.equal(g.count, want.count + corr[:, 2 * m]), (
+            "K5 count differs from K1's corrected by the boundary tuples")
+        assert torch.equal(g.scanned, want.scanned)
+        for f, cols in (("sums", corr[:, :m]), ("sumsq", corr[:, m:2 * m])):
+            a = getattr(g, f)
+            w = getattr(want, f) + cols.gather(1, idx)[:, 0]
+            assert torch.allclose(a, w, rtol=2e-4, atol=0.0), f
+            worst = max(worst, float(((a - w).abs() / w.abs().clamp(
+                min=1e-300)).max()))
+    log(f"  {len(blocks)} batches x {padded.n} snippets: {flips} "
+        f"(tuple, snippet) pairs inside a bound in float32 and outside in "
+        f"float64, on (batch, snippet) {sorted(flipped)}; counts equal K1's "
+        f"corrected by them; largest relative difference of sums/sumsq "
+        f"{worst:.3e}; launches {counts}")
+    return counts["range_mask_agg"]
 
 
 # ------------------------------------------------------------------ phase 4
@@ -604,7 +970,8 @@ def against_plain(seed):
     rg, g_counts = run(None)
     rc, c_counts = run("cpu")
     rc1, _ = run("cpu", threads=1)
-    assert all(v > 0 for v in g_counts.values()), g_counts
+    assert g_counts["fused_masked_scan"] > 0 and g_counts[
+        "gp_batch_infer"] > 0, g_counts
     assert all(v == 0 for v in c_counts.values()), c_counts
     # AVG cells come from the well-conditioned AVG synopses and are held at
     # rtol 1e-8. COUNT and SUM cells go through the FREQ synopsis, whose
@@ -655,11 +1022,16 @@ def main():
     rel = tpch_like(args.seed, n_rows=600_000)
     k1 = check_k1(rel, args.seed)
     k2 = check_k2(args.seed, rel.device)
+    k4 = check_k4(rel, args.seed)
+    k5 = check_k5(rel, args.seed)
     del rel
     if args.kernels_only:
         log(f"kernels-only run done in {time.perf_counter() - t_start:.1f} s")
         return 0
-    counts, e2e = main_path(args.seed)
+    counts, e2e, rel, cfg = main_path(args.seed)
+    mesh_counts, e2e5 = facade_and_mesh(rel, cfg, args.seed)
+    k5_launches = k5_on_the_scan_placement(rel, cfg, args.seed)
+    del rel
     worst = against_plain(args.seed)
     kernels = [
         dict(name="fused_masked_scan", route="cuda",
@@ -670,12 +1042,20 @@ def main():
              source="src/repro_torch/csrc/gp_batch_infer.cu",
              replaces=K2_REPLACES, launches=counts["gp_batch_infer"],
              shape="Q=8 C=2000 f64", **k2[(8, "float64")]),
+        dict(name="masked_partials", route="cuda",
+             source="src/repro_torch/csrc/fused_masked_scan.cu",
+             replaces=K4_REPLACES, launches=mesh_counts["masked_partials"],
+             shape=f"T={SF1_BATCH_T} Q=128 f64", **k4[128]),
+        dict(name="range_mask_agg", route="cuda",
+             source="src/repro_torch/csrc/range_mask_agg.cu",
+             replaces=K5_REPLACES, launches=k5_launches,
+             shape=f"T={SF1_BATCH_T} Q=128 f32", **k5),
     ]
-    for k in kernels:
-        k["library_ms"] = None
-    log("library_ms is null: no single PyTorch call computes the fused "
-        "masked scan or the fused GP improve")
-    log(f"end to end: {json.dumps(e2e)}; CUDA vs CPU {json.dumps(worst)};"
+    log("library_ms is null for the fused masked scan and the fused GP "
+        "improve: no single PyTorch call computes either; masked_partials' "
+        "is one cuBLAS DGEMM, mask.T @ [m, m^2, 1]")
+    log(f"end to end: phase 3 {json.dumps(e2e)}; phase 5 {json.dumps(e2e5)};"
+        f" CUDA vs CPU {json.dumps(worst)};"
         f" total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -8,9 +8,10 @@ whole workload into one scan. The machinery lives in the shared plan IR
 1. ``plan_workload`` decomposes every query into its ``LogicalPlan`` and
    dedups identical snippets across queries into two fused sets;
 2. two ``PhysicalPlan``s scan sample batches lazily, evaluating each batch
-   EXACTLY ONCE for the union of snippets — on the card through the
-   ``fused_masked_scan`` kernel, for supported queries and raw-only probes
-   alike;
+   EXACTLY ONCE for the union of snippets — supported queries through the
+   ``ScanPlacement`` (local, or sharded over a mesh) with the engine's
+   per-block evaluator, raw-only probes through ``plain_eval``; on the card
+   both launch a scan kernel;
 3. ``replay_query`` replays queries in submission order against cumulative
    per-batch partials: improve, early-stop per query, record — the same
    state transitions, in the same order, as query-at-a-time execution.
@@ -29,6 +30,7 @@ from repro_torch.aqp.plan import (
     plan_workload,
     replay_query,
 )
+from repro_torch.core.types import SnippetBatch
 
 __all__ = ["BatchExecutor", "BatchStats"]
 
@@ -36,13 +38,18 @@ __all__ = ["BatchExecutor", "BatchStats"]
 class BatchExecutor:
     """Fused executor over one ``VerdictEngine`` (see module docstring).
 
-    The scan routes through the engine's ``ScanPlacement``. Stats of the
-    latest call are kept in ``self.stats``.
+    The scan routes through the engine's ``ScanPlacement`` (``engine.scan``)
+    with the engine's per-block evaluator. Stats of the latest call are kept
+    in ``self.stats``.
     """
 
     def __init__(self, engine):
         self.engine = engine
         self.stats = BatchStats()
+
+    def _eval(self, block, padded: SnippetBatch):
+        return self.engine.scan.eval_block(
+            block, padded, local_eval=self.engine._eval_fn)
 
     def execute_many(
         self,
@@ -61,7 +68,7 @@ class BatchExecutor:
         )
         wp = plan_workload(eng, queries)
         self.stats = wp.stats
-        phys_main = PhysicalPlan(eng.batches, wp.fused, eng.scan.eval_block,
+        phys_main = PhysicalPlan(eng.batches, wp.fused, self._eval,
                                  stats=wp.stats)
         phys_raw = PhysicalPlan(eng.batches, wp.fused_raw, plain_eval,
                                 stats=wp.stats)

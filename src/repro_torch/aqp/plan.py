@@ -205,9 +205,9 @@ def plan_workload(engine, queries: Sequence[Q.AggQuery]) -> WorkloadPlan:
 class PhysicalPlan:
     """A padded fused snippet set + the lazy cumulative-partials scan.
 
-    ``eval_fn(block, padded) -> Partials`` is the per-batch evaluator — the
-    engine's ``ScanPlacement.eval_block``, or ``plain_eval`` for raw-only
-    probes.
+    ``eval_fn(block, padded) -> Partials`` is the per-batch evaluator —
+    ``BatchExecutor._eval`` (the engine's ``ScanPlacement``, local or
+    sharded), or ``plain_eval`` for raw-only probes.
     The padded set is placed on the sample's device once. Sample batches are
     pulled on demand; snapshot ``b`` holds the cumulative partials of
     batches ``0..b``, and per-batch estimates are cached.
@@ -227,6 +227,14 @@ class PhysicalPlan:
         self.stats = stats
         self._snapshots: List[Partials] = []
         self._estimates: Dict[int, Tuple] = {}
+
+    def partials_at(self, b: int) -> Partials:
+        """Cumulative partials of batches ``0..b``, sliced to the
+        non-padding snippets (scans lazily like ``raw_at``)."""
+        self.raw_at(b)
+        p = self._snapshots[b]
+        return Partials(p.sums[: self.n], p.sumsq[: self.n],
+                        p.count[: self.n], p.scanned)
 
     def raw_at(self, b: int, rows: Optional[np.ndarray] = None) -> RawAnswer:
         """Raw answers after batches ``0..b`` for ``rows`` of the fused set
@@ -269,6 +277,7 @@ def replay_rounds(
     target_rel_error: Optional[float] = None,
     max_batches: Optional[int] = None,
     stop_delta: Optional[float] = None,
+    every_batch: bool = False,
     deadline: Optional[float] = None,
 ):
     """The single query lifecycle, one round per evaluated sample batch.
@@ -276,10 +285,13 @@ def replay_rounds(
     Yields ``(QueryResult, final)`` pairs: improve via the synopsis,
     validate, check the early-stop target (at confidence ``stop_delta``,
     default the engine's ``report_delta``), and — only on the final round —
-    record the raw answers for learning.
+    record the raw answers for learning. ``replay_query`` consumes this for
+    one-shot execution; ``Session.stream`` surfaces every round.
 
-    Only the rounds the one-shot result needs are evaluated: all of them
-    under a target or a deadline, just the last one otherwise. Raw-only (unsupported) queries never early-stop and never record.
+    ``every_batch=False`` evaluates only the rounds the one-shot result
+    needs (all of them under a target or a deadline, just the last one
+    otherwise); ``every_batch=True`` evaluates and yields after every sample
+    batch. Raw-only (unsupported) queries never early-stop and never record.
 
     ``deadline``: absolute ``time.monotonic()`` budget, checked AFTER each
     round: on expiry the round just computed becomes final, flagged
@@ -294,10 +306,11 @@ def replay_rounds(
         yield QueryResult([], 0, 0, True, plan=None), True
         return
     card = engine.batches.source_cardinality
-    all_rounds = deadline is not None or target_rel_error is not None
+    all_rounds = (every_batch or deadline is not None
+                  or target_rel_error is not None)
     if not lp.supported:
         # Raw AQP answers over the full budget, no learning (paper §2.2).
-        rounds = (range(max_batches) if deadline is not None
+        rounds = (range(max_batches) if every_batch or deadline is not None
                   else (max_batches - 1,))
         for b in rounds:
             raw = physical.raw_at(b, lp.rows)

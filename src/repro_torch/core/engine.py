@@ -14,13 +14,18 @@ Workflow per query:
 The lifecycle lives in the shared plan IR (``repro_torch.aqp.plan``); ALL
 learned state lives behind the store (``repro_torch.core.store``); the scan
 routes through a ``ScanPlacement``. ``execute(q)`` is literally
-``execute_many([q])[0]``.
+``execute_many([q])[0]``. Pass ``store=`` (an instance or a
+``(schema, config) -> SynopsisStore`` factory) and/or ``scan=`` to choose
+placement per plane — ``LocalSynopsisStore`` + local ``ScanPlacement`` by
+default, ``ShardedSynopsisStore`` + ``ShardedScanPlacement`` over a mesh
+(``repro_torch.verdict.connect`` wires both from its ``mesh=`` argument).
 
 Device: the engine runs on ``device`` (``None``: the CUDA card, failing
 loudly when there is none). The relation must already live there. On the
-card every scan launches the ``fused_masked_scan`` kernel and every improve
-the ``gp_batch_infer`` kernel, whatever ``use_kernels`` says; on the CPU the
-kernels' plain versions run.
+card every scan launches a scan kernel (``fused_masked_scan`` locally,
+``masked_partials`` under a mesh) and every improve the ``gp_batch_infer``
+kernel, whatever ``use_kernels`` says; on the CPU the plain scan and the
+improve kernel's plain version run.
 
 ``learning=False`` turns the engine into the NoLearn baseline of §8.1.
 """
@@ -33,11 +38,14 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from repro_torch.aqp import queries as Q
-from repro_torch.aqp.executor import ScanPlacement, predicate_mask
+from repro_torch.aqp.executor import (
+    ScanPlacement,
+    predicate_mask,
+)
 from repro_torch.aqp.plan import QueryResult
 from repro_torch.aqp.relation import Relation
 from repro_torch.aqp.sampler import SampleBatches, build_sample
-from repro_torch.core.store import LocalSynopsisStore, agg_key
+from repro_torch.core.store import LocalSynopsisStore, SynopsisStore, agg_key
 from repro_torch.core.synopsis import MIN_FILL_BUCKET, MIN_Q_BUCKET, Synopsis
 from repro_torch.core.types import (
     Schema,
@@ -77,6 +85,8 @@ class VerdictEngine:
         relation: Relation,
         config: Optional[EngineConfig] = None,
         device=None,
+        store=None,
+        scan: Optional[ScanPlacement] = None,
     ):
         self.device = resolve_device(device)
         if relation.device != self.device:
@@ -86,14 +96,28 @@ class VerdictEngine:
         self.relation = relation
         self.schema: Schema = relation.schema
         self.config = config or EngineConfig()
-        self.scan = ScanPlacement()
+        # The scan plane's placement seam: every block evaluation routes
+        # through it, as all learned state routes through ``store``.
+        self.scan: ScanPlacement = scan or ScanPlacement()
         self.batches: SampleBatches = build_sample(
             relation,
             rate=self.config.sample_rate,
             n_batches=self.config.n_batches,
             seed=self.config.seed,
         )
-        self.store = LocalSynopsisStore(self.schema, self.config, self.device)
+        if store is None:
+            self.store: SynopsisStore = LocalSynopsisStore(
+                self.schema, self.config, self.device)
+        elif callable(store) and not isinstance(store, SynopsisStore):
+            self.store = store(self.schema, self.config)  # a factory
+        else:
+            self.store = store
+        # The per-block evaluator handed to the placement: the fused scan
+        # kernel's wrapper, which launches the kernel on the card and runs
+        # its plain version (the plain scan, bit for bit) on the CPU.
+        from repro_torch.kernels.fused_masked_scan import ops as fms_ops
+
+        self._eval_fn = fms_ops.eval_partials_fused
 
     # ------------------------------------------------------------- synopses
     def synopsis_for(self, agg: int, measure: int) -> Synopsis:

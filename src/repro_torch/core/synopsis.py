@@ -53,6 +53,7 @@ from repro_torch.core.types import (
     SnippetBatch,
     bucket_size,
     pad_snippets,
+    resolve_device,
     snippet_key,
     to_numpy,
 )
@@ -249,7 +250,8 @@ class Synopsis:
     """Bounded per-aggregate-function snippet store + incremental GP state.
 
     ``device``: the torch device the model state (Sigma^{-1} chain, alpha,
-    GP parameters, serve buffers) lives on.
+    GP parameters, serve buffers) lives on; ``None`` means the CUDA card,
+    failing loudly when there is none.
     """
 
     def __init__(
@@ -260,7 +262,7 @@ class Synopsis:
         params: Optional[GPParams] = None,
         async_ingest: bool = True,
         max_pending: int = MAX_PENDING_DEFAULT,
-        device="cpu",
+        device=None,
         min_fill_bucket: int = MIN_FILL_BUCKET,
         min_q_bucket: int = MIN_Q_BUCKET,
     ):
@@ -269,7 +271,7 @@ class Synopsis:
         self.delta_v = float(delta_v)
         self.async_ingest = bool(async_ingest)
         self.max_pending = int(max_pending)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.min_fill_bucket = int(min_fill_bucket)
         self.min_q_bucket = int(min_q_bucket)
         self.name: Optional[str] = None  # store-assigned state_key (fault key)

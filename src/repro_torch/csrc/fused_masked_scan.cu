@@ -1,4 +1,7 @@
 // Fused masked scan for Hopper (sm_90a): the scan of every sample batch.
+// This file holds K1 (fms_partials, entry point fms_launch) and K4
+// (mpa_partials, entry point mpa_launch, further down), which share the
+// chunked fixed-order fold and its second pass (fms_fold_chunks).
 //
 // Replaces the TPU kernel src/repro/kernels/fused_masked_scan/kernel.py
 // (_fms_kernel, launched by fused_masked_scan_pallas). For each snippet q
@@ -124,6 +127,78 @@ __global__ void fms_partials(const double* __restrict__ x,
   dst[2 * M] = acc_n;
 }
 
+// K4, masked partials: the same fold over a mask built outside the kernel.
+//
+// Replaces the TPU kernel src/repro/kernels/fused_masked_scan/kernel.py
+// (_mpa_kernel, launched by masked_partials_pallas): the sharded placement
+// builds the (T, Q) 0/1 mask shard by shard, gathers it onto one device and
+// folds it here against [m, m^2, 1]:
+//
+//     out[q, p] = sum_t mask[t, q] * payload[t, p]
+//
+// What bounds it on the H100: bytes. It reads the f64 mask once, T*Q*8
+// bytes (61.4 MB, ~18 us at 3.35 TB/s for T = 60,000 and Q = 128), and does
+// ~2(2M+1) operations per mask entry (~1 us of f64 work).
+//
+// Design: K1's, with the mask read instead of computed. One thread owns one
+// snippet, so the threads of a warp read neighbouring q of one mask row
+// (coalesced). Block (chunk c, snippet tile) folds its chunk's tuples in
+// ascending order, with K1's own per-tuple update on the mask value w, into
+// scratch[c, q, :]; fms_fold_chunks sums the chunks in ascending order. On a
+// 0/1 mask built from the same predicates the result is therefore bitwise
+// K1's on the same block, which is what makes a mesh session answer bitwise
+// like a local one. No float atomics.
+__global__ void mpa_partials(const double* __restrict__ mask,
+                             const double* __restrict__ meas, int T, int Q,
+                             int M, int chunk, double* __restrict__ scratch) {
+  constexpr int TQ = SNIPPETS_PER_BLOCK;
+  constexpr int TT = TUPLES_PER_TILE;
+  __shared__ double m_s[TT * MAX_M];  // [TT][M]
+
+  const int tid = threadIdx.x;
+  const int q = blockIdx.y * TQ + tid;
+  const bool live = q < Q;
+  const int t_begin = blockIdx.x * chunk;
+  const int t_end = min(T, t_begin + chunk);
+
+  double acc_s[MAX_M], acc_q[MAX_M], acc_n = 0.0;
+#pragma unroll
+  for (int j = 0; j < MAX_M; ++j) acc_s[j] = acc_q[j] = 0.0;
+
+  for (int t0 = t_begin; t0 < t_end; t0 += TT) {
+    const int n = min(TT, t_end - t0);
+    __syncthreads();  // the previous tile is fully read
+    for (int i = tid; i < n * M; i += TQ) m_s[i] = meas[(size_t)t0 * M + i];
+    __syncthreads();
+    if (!live) continue;
+    const double* col = mask + (size_t)t0 * Q + q;
+#pragma unroll 4
+    for (int t = 0; t < n; ++t) {
+      const double w = col[(size_t)t * Q];
+#pragma unroll
+      for (int j = 0; j < MAX_M; ++j) {
+        if (j < M) {
+          const double mv = m_s[t * M + j];
+          acc_s[j] = __fma_rn(w, mv, acc_s[j]);
+          acc_q[j] = __fma_rn(w, __dmul_rn(mv, mv), acc_q[j]);
+        }
+      }
+      acc_n += w;
+    }
+  }
+  if (!live) return;
+  const int P = 2 * M + 1;
+  double* dst = scratch + ((size_t)blockIdx.x * Q + q) * P;
+#pragma unroll
+  for (int j = 0; j < MAX_M; ++j) {
+    if (j < M) {
+      dst[j] = acc_s[j];
+      dst[M + j] = acc_q[j];
+    }
+  }
+  dst[2 * M] = acc_n;
+}
+
 // out[i] = sum over chunks c = 0, 1, ... of scratch[c, i], in that order.
 __global__ void fms_fold_chunks(const double* __restrict__ scratch,
                                 int n_chunks, int n, double* __restrict__ out) {
@@ -164,6 +239,29 @@ extern "C" int fms_launch(const double* x, const int* codes,
     dim3 grid(n_chunks, (Q + TQ - 1) / TQ);
     fms_partials<<<grid, TQ, smem, s>>>(x, codes, valid, meas, lo, hi, cat, T,
                                          Q, L, C, V, M, chunk, eps, scratch);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int n = Q * (2 * M + 1);
+  fms_fold_chunks<<<(n + 255) / 256, 256, 0, s>>>(scratch, n_chunks, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point of K4 (bound with ctypes). Launches both passes on
+// `stream`, allocates nothing, and returns cudaGetLastError().
+// mask: (T, Q) f64; meas: (T, M) f64; scratch: (ceil(T/chunk), Q, 2M+1) f64;
+// out: (Q, 2M+1) f64.
+extern "C" int mpa_launch(const double* mask, const double* meas, int T,
+                          int Q, int M, int chunk, double* scratch,
+                          double* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Q <= 0) return 0;
+  if (M > MAX_M || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_chunks = T > 0 ? (T + chunk - 1) / chunk : 0;
+  if (n_chunks > 0) {
+    constexpr int TQ = SNIPPETS_PER_BLOCK;
+    dim3 grid(n_chunks, (Q + TQ - 1) / TQ);
+    mpa_partials<<<grid, TQ, 0, s>>>(mask, meas, T, Q, M, chunk, scratch);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }

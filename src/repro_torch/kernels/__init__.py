@@ -14,8 +14,14 @@ error is an exception, never a fallback.
 Kernels:
   fused_masked_scan -- the scan: range compare + categorical membership +
                        validity + ``[m, m², 1]`` partials in one pass (f64).
+  masked_partials   -- the sharded placement's fold of a gathered (T, Q)
+                       mask against ``[m, m², 1]``, in the scan's own order
+                       (f64; same source file as the scan).
   gp_batch_infer    -- the improve step: ``diag(K Σ⁻¹ Kᵀ)``, ``K α`` and the
                        Eq. 12 blend (f64, or f32 under ``use_kernels=True``).
+  range_mask_agg    -- range compares times a precomputed (T, Q) mask,
+                       folded against a payload (f32); the evaluator
+                       ``eval_partials_kernel`` of the scan placement.
 
 Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches``, which ``launch_counts`` reads and
@@ -36,7 +42,7 @@ RANGE_EPS = 1e-12  # shared predicate-boundary epsilon (kernel == plain version)
 SCAN_TILE_T = 512  # tuple-axis tile of the plain scan's fixed-order fold
 SCAN_TILE_Q = 128  # snippet-axis tile (= core.types.SNIPPET_TILE serve tiles)
 
-KERNEL_SOURCES = ("fused_masked_scan", "gp_batch_infer")
+KERNEL_SOURCES = ("fused_masked_scan", "gp_batch_infer", "range_mask_agg")
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -143,9 +149,12 @@ def check_tensor(t, name: str, dtype, shape, device):
 def _wrappers():
     from repro_torch.kernels.fused_masked_scan import ops as fms_ops
     from repro_torch.kernels.gp_batch_infer import ops as gp_ops
+    from repro_torch.kernels.range_mask_agg import ops as rma_ops
 
     return {"fused_masked_scan": fms_ops.fused_masked_scan,
-            "gp_batch_infer": gp_ops.gp_batch_infer}
+            "masked_partials": fms_ops.masked_partials,
+            "gp_batch_infer": gp_ops.gp_batch_infer,
+            "range_mask_agg": rma_ops.range_mask_agg}
 
 
 def launch_counts() -> Dict[str, int]:

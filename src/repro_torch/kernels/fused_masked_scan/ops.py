@@ -11,6 +11,13 @@ bitwise the same on every run), on a CPU tensor it runs the plain version
 calls: same signature including ``valid=``, same ``Partials`` out, with the
 reference epilogue (gather ``sums``/``sumsq`` by ``snippets.measure``;
 ``scanned`` is the valid-mask sum).
+
+``masked_partials`` is K4: the same fold over a (T, Q) mask built outside
+the kernel (``csrc/fused_masked_scan.cu``, entry point ``mpa_launch``; the
+plain version is ``ref.masked_partials_ref``). ``masked_partials_fused`` is
+its drop-in for the gathered-mask aggregation of the sharded placement
+(``repro_torch.aqp.executor.eval_partials_sharded``). On a 0/1 mask it
+gives K1's bits on the same block.
 """
 from __future__ import annotations
 
@@ -26,22 +33,33 @@ from repro_torch.kernels import (
     check_tensor,
     load,
 )
-from repro_torch.kernels.fused_masked_scan.ref import fused_masked_scan_ref
+from repro_torch.kernels.fused_masked_scan.ref import (
+    fused_masked_scan_ref,
+    masked_partials_ref,
+)
 
 FMS_CHUNK_T = 256  # tuples one block folds; fixed, so sums depend on T only
 FMS_MAX_MEASURES = 8  # the kernel keeps 2·8+1 accumulators in registers
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 7 + [_I] * 7 + [ctypes.c_double] + [_P] * 3
+_ARGTYPES = {
+    "fms_launch": [_P] * 7 + [_I] * 7 + [ctypes.c_double] + [_P] * 3,
+    "mpa_launch": [_P] * 2 + [_I] * 4 + [_P] * 3,
+}
 
 
-def _lib():
-    lib = load("fused_masked_scan")
-    if lib.fms_launch.argtypes is None:
-        lib.fms_launch.argtypes = _ARGTYPES
-        lib.fms_launch.restype = ctypes.c_int
-    return lib
+def _entry(name):
+    fn = getattr(load("fused_masked_scan"), name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_grid(what, t_n, q_n):
+    if q_n > 65535 * 128 or t_n >= 2**31 - FMS_CHUNK_T:
+        raise ValueError(f"{what}: T={t_n}, Q={q_n} exceed the kernel's grid")
 
 
 def fused_masked_scan(x, codes, measures, lo, hi, cat, valid=None):
@@ -72,14 +90,12 @@ def fused_masked_scan(x, codes, measures, lo, hi, cat, valid=None):
     if valid is not None:
         check_tensor(valid, "valid", F64, (t_n,), dev)
     n_chunks = -(-t_n // FMS_CHUNK_T)
-    if q_n > 65535 * 128 or t_n >= 2**31 - FMS_CHUNK_T:
-        raise ValueError(f"fused_masked_scan: T={t_n}, Q={q_n} exceed the "
-                         "kernel's grid")
+    _check_grid("fused_masked_scan", t_n, q_n)
     out = torch.empty((q_n, p), dtype=F64, device=dev)
     if q_n == 0:
         return out
     scratch = torch.empty((max(n_chunks, 1), q_n, p), dtype=F64, device=dev)
-    err = _lib().fms_launch(
+    err = _entry("fms_launch")(
         x.data_ptr(), codes.data_ptr(),
         None if valid is None else valid.data_ptr(),
         measures.data_ptr(), lo.data_ptr(), hi.data_ptr(), cat.data_ptr(),
@@ -106,3 +122,48 @@ def eval_partials_fused(num_normalized, cat, measures, snippets,
     out = fused_masked_scan(num_normalized, cat, measures, snippets.lo,
                             snippets.hi, snippets.cat, valid)
     return partials_from_columns(out, snippets, m, scanned)
+
+
+def masked_partials(mask, measures):
+    """(Q, 2M+1) f64: ``Σ_t mask[t,q]·[m, m², 1][t]``, folded in K1's order.
+
+    mask: (T,Q) f64 (the sharded placement's gathered 0/1 mask);
+    measures: (T,M) f64.
+    """
+    dev = mask.device
+    if dev.type == "cpu":
+        return masked_partials_ref(mask, measures)
+    if dev.type != "cuda":
+        raise ValueError(f"masked_partials: unsupported device {dev}")
+    t_n, q_n = mask.shape
+    m = measures.shape[1]
+    if m > FMS_MAX_MEASURES:
+        raise ValueError(f"masked_partials takes at most {FMS_MAX_MEASURES} "
+                         f"measures, got {m}")
+    check_tensor(mask, "mask", F64, (t_n, q_n), dev)
+    check_tensor(measures, "measures", F64, (t_n, m), dev)
+    _check_grid("masked_partials", t_n, q_n)
+    n_chunks = -(-t_n // FMS_CHUNK_T)
+    out = torch.empty((q_n, 2 * m + 1), dtype=F64, device=dev)
+    if q_n == 0:
+        return out
+    scratch = torch.empty((max(n_chunks, 1), q_n, 2 * m + 1), dtype=F64,
+                          device=dev)
+    err = _entry("mpa_launch")(
+        mask.data_ptr(), measures.data_ptr(), t_n, q_n, m, FMS_CHUNK_T,
+        scratch.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_cuda_error(err, "masked_partials")
+    masked_partials.launches += 1
+    return out
+
+
+masked_partials.launches = 0
+
+
+def masked_partials_fused(mask, measures, snippets, scanned) -> Partials:
+    """K4-backed aggregation of a pre-built (T, Q) mask (drop-in for the
+    plain ``_partials_from_mask``)."""
+    out = masked_partials(mask, measures)
+    return partials_from_columns(out, snippets, measures.shape[1], scanned)

@@ -148,8 +148,10 @@ def test_synopsis_rebuilds_the_inverse_when_an_update_is_refused(monkeypatch):
     full refactors: it answers as one whose updates succeed, to rounding."""
     _, sch = _schemas()
     rng_a, rng_b = np.random.default_rng(6), np.random.default_rng(6)
-    a = pt_syn.Synopsis(sch, capacity=16, async_ingest=False)
-    b = pt_syn.Synopsis(sch, capacity=16, async_ingest=False)
+    a = pt_syn.Synopsis(sch, capacity=16, async_ingest=False,
+                        device="cpu")
+    b = pt_syn.Synopsis(sch, capacity=16, async_ingest=False,
+                        device="cpu")
     batches = []
     for rng in (rng_a, rng_b):
         batches.append([(_random_batch(rng, sch, 5, pt_types),
@@ -245,7 +247,8 @@ def test_synopsis_improve_matches_reference(use_kernel):
     jsch, psch = _schemas()
     rj, rp = np.random.default_rng(7), np.random.default_rng(7)
     js = jx_syn.Synopsis(jsch, capacity=24, async_ingest=False)
-    ps = pt_syn.Synopsis(psch, capacity=24, async_ingest=False)
+    ps = pt_syn.Synopsis(psch, capacity=24, async_ingest=False,
+                         device="cpu")
     for step in range(5):
         n = 9
         for syn, rng, sch, lib in ((js, rj, jsch, jx_types),
@@ -277,8 +280,10 @@ def test_async_ingest_matches_sync_bitwise():
     same model state and answers as synchronous ingestion."""
     _, sch = _schemas()
     rng_a, rng_b = np.random.default_rng(4), np.random.default_rng(4)
-    a = pt_syn.Synopsis(sch, capacity=32, async_ingest=True)
-    b = pt_syn.Synopsis(sch, capacity=32, async_ingest=False)
+    a = pt_syn.Synopsis(sch, capacity=32, async_ingest=True,
+                        device="cpu")
+    b = pt_syn.Synopsis(sch, capacity=32, async_ingest=False,
+                        device="cpu")
     for step in range(10):
         last = []
         for syn, rng in ((a, rng_a), (b, rng_b)):
@@ -307,8 +312,10 @@ def test_quarantine_and_heal_from_rows():
     rng = np.random.default_rng(2)
     batches = [(_random_batch(rng, sch, 4, pt_types), rng.normal(1, 0.3, 4),
                 rng.uniform(0.01, 0.05, 4)) for _ in range(3)]
-    ok = pt_syn.Synopsis(sch, capacity=16, async_ingest=False)
-    sick = pt_syn.Synopsis(sch, capacity=16, async_ingest=False)
+    ok = pt_syn.Synopsis(sch, capacity=16, async_ingest=False,
+                         device="cpu")
+    sick = pt_syn.Synopsis(sch, capacity=16, async_ingest=False,
+                           device="cpu")
     sick.name = "agg0-measure0"
     for b in batches:
         ok.add(*b)
@@ -326,3 +333,13 @@ def test_quarantine_and_heal_from_rows():
     assert sick.heal()
     assert torch.equal(sick._sigma_inv, ok._sigma_inv)
     assert torch.equal(sick.improve(new, raw).theta, ok.improve(new, raw).theta)
+
+
+def test_synopsis_default_device_is_cuda_and_fails_loudly_without_it():
+    """``Synopsis(schema)`` is a public entry point: with no device given it
+    runs on the card, and without one it raises instead of using the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, sch = _schemas()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt_syn.Synopsis(sch)

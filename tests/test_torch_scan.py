@@ -8,7 +8,8 @@ plain version). Tolerances:
   - ``sums`` / ``sumsq`` at rtol 1e-11 (f64 folds in another library's
     summation order);
   - inside the port, bitwise under Q-padding and tuple-block padding.
-The CUDA kernel itself runs only on the card (``gpu`` marker).
+The CUDA kernel itself runs only on the card (``tests/test_torch_gpu.py``,
+``gpu`` marker).
 """
 import numpy as np
 import pytest
@@ -190,23 +191,3 @@ def test_wrapper_rejects_other_devices():
         pt_fms.fused_masked_scan(num.to("meta"), cat.to("meta"),
                                  meas.to("meta"), snips.lo.to("meta"),
                                  snips.hi.to("meta"), snips.cat.to("meta"))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("q_n", [128, 300])
-def test_cuda_kernel_matches_plain_version(q_n):
-    """On the card: the CUDA kernel against its plain version, bitwise
-    across runs, count exact, sums at rtol 1e-11."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run with chip_smoke.py or pytest "
-                    "-m gpu on the card)")
-    _, (num, cat, meas, snips) = _both(5000, (3, 2, 5), seed=q_n)
-    snips = pt_types.pad_snippets(snips, q_n).to("cuda")
-    args = [v.cuda() for v in (num, cat, meas)]
-    got = pt_fms.fused_masked_scan(*args, snips.lo, snips.hi, snips.cat)
-    again = pt_fms.fused_masked_scan(*args, snips.lo, snips.hi, snips.cat)
-    want = fused_masked_scan_ref(args[0], args[1], None, args[2], snips.lo,
-                                 snips.hi, snips.cat)
-    assert torch.equal(got, again)
-    assert torch.equal(got[:, -1], want[:, -1])
-    torch.testing.assert_close(got, want, rtol=1e-11, atol=0)
