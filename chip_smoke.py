@@ -7,19 +7,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   1. device and build: card name and power limit, nvcc build of every kernel
      under src/repro_torch/csrc (timed), TF32 off;
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, with CUDA-event timings and bounds;
+     shapes the main path gives it, with CUDA-event timings and bounds (the
+     SE-covariance forward and its lengthscale gradient included);
   3. the main path at a size users run: TPC-H SF1 lineitem cardinality
      (6,001,215 rows), capacity 2000, a 2000-query warm-up through
      ``execute_many`` and 200 queries served one by one through ``execute``;
+  6. learning and checkpoints on phase 3's engine: ``refit()`` with its
+     defaults (the NLL must fall on every synopsis; every Adam step runs the
+     SE-covariance forward and gradient kernels), ``save_synopses`` /
+     ``load_synopses`` into a fresh engine (bitwise state, then 20 queries
+     answered bitwise alike), 200 fresh queries after the refit, and a
+     drifted data append on every synopsis;
   5. the ``connect``/``Session`` facade on phase 3's relation, locally and
      over a four-shard ``Mesh`` on the one card: the mesh session must
      answer bitwise like the local one and scan through the
-     ``masked_partials`` kernel once per round; then the ``range_mask_agg``
-     kernel through the scan placement over every sample batch, against
-     the fused scan;
+     ``masked_partials`` kernel once per round, also after
+     ``Session.refit()``; then the ``range_mask_agg`` kernel through the
+     scan placement over every sample batch, against the fused scan;
   4. the slice against its plain path: a CUDA engine and a CPU engine on the
-     same 600,000-row data must agree (run after phase 5, which reuses
-     phase 3's relation).
+     same 600,000-row data must agree, before and after a short refit of
+     both (run last; phases 6 and 5 reuse phase 3's relation).
 The last two lines of standard output are the kernels' JSON record and the
 device record ``{"ok": true, "device": {...}}``.
 """
@@ -37,8 +44,10 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # H100 SXM data sheet: float64 at 67 TFLOP/s through the DMMA tensor cores
 # (full f64 precision); float32 at 67 TFLOP/s outside the tensor cores
-# (their TF32 rate is for a lower precision).
-PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
+# (their TF32 rate is for a lower precision). Work that cannot use the
+# tensor cores (K3: division, exp, erf) is bounded by the non-tensor float64
+# rate, 34 TFLOP/s.
+PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "float64_simt": 34e12}
 # A flipped decision passes only if its input (the largest relative error
 # for the stop test, the model answer for validation) lay within this factor
 # of the largest difference the engines showed in that input on the
@@ -49,6 +58,9 @@ K1_REPLACES = "src/repro/kernels/fused_masked_scan/kernel.py:84"
 K2_REPLACES = "src/repro/kernels/gp_batch_infer/kernel.py:27"
 K4_REPLACES = "src/repro/kernels/fused_masked_scan/kernel.py:133"
 K5_REPLACES = "src/repro/kernels/range_mask_agg/kernel.py:25"
+K3_REPLACES = "src/repro/kernels/se_covariance/kernel.py:35"
+SYNOPSIS_C = 2000  # synopsis capacity of phases 3 and 6 (a full rebuild)
+PHASE4_REFIT_STEPS = 30  # phase 4 refits the CPU engine too: few steps
 SF1_BATCH_T = 60_013  # tuples in one sample batch of phase 3's SF1 sample
 
 
@@ -395,6 +407,157 @@ def check_k5(rel, seed):
     return rec
 
 
+def _se_inputs(rng, n, l, equality=False):
+    """Pre-widened ranges of ``n`` snippets over ``l`` dims in normalized
+    units, widths 0.05-0.45; ``equality`` makes dim 0 a zero-width range
+    widened to 1e-6, as ``covariance.widened`` does."""
+    lo = rng.uniform(0.0, 0.6, (n, l))
+    hi = lo + rng.uniform(0.05, 0.45, (n, l))
+    if equality:
+        hi[:, 0] = lo[:, 0] + 1e-6
+    return lo, hi
+
+
+def _k3_ops(n_i, n_j, l):
+    """Operations of K3's forward and gradient, from the shapes. Every
+    add, subtract, multiply, divide, compare, exp and erf counts as one
+    operation (libdevice's exp and erf are tens of instructions each, so
+    this is a lower bound on the card's work). Forward, per element and
+    dimension: 4 antiderivatives of 9 (difference, u/z, square, exp,
+    ((-z/2) z) e, ((sqrt(pi)/2) z) u, erf, its product, subtract), 3 for
+    the inclusion-exclusion, clamp and product: 41; per element 3 more for
+    the sigma2 and norm scale. Gradient, per element and dimension: 4
+    antiderivatives of 13 (the 9 and dF/dz's 4), 6 for the two
+    inclusion-exclusions, clamp and its mask: 60; per element 3 for the
+    scale, l^2 for the products over the other dims, l for the block
+    reduction."""
+    fwd = n_i * n_j * (41 * l + 3)
+    grad = n_i * n_j * (60 * l + 3 + l * l + l)
+    return fwd, grad
+
+
+def check_k3(seed, dev):
+    import torch
+    from repro_torch.kernels.se_covariance import ops as se
+    from repro_torch.kernels.se_covariance.ref import (se_cov_grad_ref,
+                                                       se_cov_matrix_ref,
+                                                       se_double_integral)
+
+    log("-- K3 se_cov_matrix (forward): against the plain version on the "
+        "card, f64 rtol 1e-12 on ranges wider than 0.05 and rtol 1e-3 on "
+        "equality ranges, f32 rtol 2e-5 atol 1e-7 (the reference's f32 "
+        "budget); repeat bitwise; f64 bitwise equal to the plain version's "
+        "per-dimension integrals multiplied in the kernel's order")
+    log("-- K3 se_cov_grad (gradient wrt ls): against torch.autograd.grad of "
+        "the plain version on the card, f64 rtol 1e-9 (another summation "
+        "order over n_i*n_j terms); repeat bitwise")
+    l = 3
+    records = {}
+    rng = np.random.default_rng(seed + 13)
+    ls = torch.as_tensor(rng.uniform(0.3, 1.5, l), device=dev)
+    sigma2 = 1.7
+    for n_i, n_j in ((128, SYNOPSIS_C), (SYNOPSIS_C, SYNOPSIS_C)):
+        lo_i, hi_i = _se_inputs(rng, n_i, l)
+        lo_j, hi_j = _se_inputs(rng, n_j, l)
+        norm_i, norm_j = rng.uniform(0.5, 2.0, n_i), rng.uniform(0.5, 2.0, n_j)
+        f64 = [torch.as_tensor(v, device=dev) for v in
+               (lo_i, hi_i, lo_j, hi_j)]
+        ni_t = torch.as_tensor(norm_i, device=dev)
+        nj_t = torch.as_tensor(norm_j, device=dev)
+        want64 = se_cov_matrix_ref(*f64, ls, sigma2, ni_t, nj_t)
+        fwd_ops, grad_ops = _k3_ops(n_i, n_j, l)
+        for dt, rtol, atol in ((torch.float64, 1e-12, 0.0),
+                               (torch.float32, 2e-5, 1e-7)):
+            args = [t.to(dt) for t in (*f64, ls)] + [sigma2] + [
+                t.to(dt) for t in (ni_t, nj_t)]
+            got = se.se_cov_matrix(*args)
+            again = se.se_cov_matrix(*args)
+            want = se_cov_matrix_ref(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), "K3 is not bitwise across runs"
+            assert bool(torch.isfinite(got).all())
+            assert torch.allclose(got, want, rtol=rtol, atol=atol), (
+                dt, float(((got - want).abs() / want.abs()).max()))
+            err = float((got - want).abs().max())
+            name = str(dt).replace("torch.", "")
+            # The plain version's clamped per-dimension integrals, multiplied
+            # in the kernel's order ((g0 g1) g2) and scaled as it scales.
+            g = torch.clamp(se_double_integral(
+                args[0][:, None, :], args[1][:, None, :], args[2][None],
+                args[3][None], args[4]), min=0.0)
+            seq = g[..., 0]
+            for k in range(1, l):
+                seq = seq * g[..., k]
+            seq = sigma2 * seq / (args[6][:, None] * args[7][None, :])
+            same_seq = bool(torch.equal(got, seq))
+            if dt == torch.float64:
+                assert same_seq, "K3 f64 differs from the plain version's " \
+                    "per-dimension integrals multiplied in its order"
+            log(f"  se_cov_matrix {n_i}x{n_j} {name}: bitwise equal to the "
+                f"plain version on the card: {bool(torch.equal(got, want))} "
+                f"({int((got != want).sum())} of {got.numel()} differ); "
+                "to its per-dimension integrals multiplied in the kernel's "
+                f"order: {same_seq}; largest relative difference "
+                f"{float(((got - want).abs() / want.abs().clamp(min=1e-300)).max()):.3e}; "
+                f"against the f64 plain version "
+                f"{float(((got.double() - want64).abs() / want64.abs()).max()):.3e}")
+            del g, seq
+            ms = time_ms(lambda: se.se_cov_matrix(*args), inner=10)
+            plain = time_ms(lambda: se_cov_matrix_ref(*args), reps=10)
+            size = 8 if dt == torch.float64 else 4
+            n_bytes = size * (2 * (n_i + n_j) * l + l + n_i + n_j + 1
+                              + n_i * n_j)
+            records[(n_i, name)] = report(
+                "se_cov_matrix", f"{n_i}x{n_j} l={l} {name}", ms, plain,
+                n_bytes, fwd_ops,
+                "float64_simt" if dt == torch.float64 else "float32", err)
+            records[(n_i, name)]["device_ms"] = device_ms_per_call(
+                f"se_cov_matrix {n_i}x{n_j} {name}",
+                lambda: se.se_cov_matrix(*args))
+        # Equality ranges: 1e-6 wide dim 0, ~12 digits cancel (f64 only).
+        eq_i = [torch.as_tensor(v, device=dev)
+                for v in _se_inputs(rng, n_i, l, equality=True)]
+        eq = (*eq_i, *f64[2:], ls, sigma2, ni_t, nj_t)
+        got, want = se.se_cov_matrix(*eq), se_cov_matrix_ref(*eq)
+        torch.cuda.synchronize()
+        assert torch.allclose(got, want, rtol=1e-3, atol=0.0)
+        log(f"  equality ranges {n_i}x{n_j} f64: largest relative "
+            f"difference {float(((got - want).abs() / want.abs().clamp(min=1e-300)).max()):.3e}"
+            f", bitwise {bool(torch.equal(got, want))}")
+        if n_i != n_j:
+            continue
+        # The gradient at the rebuild shape.
+        g_out = torch.as_tensor(rng.normal(size=(n_i, n_j)), device=dev)
+        gargs = (*f64, ls, sigma2, ni_t, nj_t, g_out)
+        got = se.se_cov_grad(*gargs)
+        again = se.se_cov_grad(*gargs)
+        want = se_cov_grad_ref(*gargs)
+        # And through autograd: the Function's backward is the same kernel.
+        z = ls.clone().requires_grad_(True)
+        (via,) = torch.autograd.grad(
+            se.se_cov_matrix(*f64, z, sigma2, ni_t, nj_t), z, g_out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), "K3 gradient is not bitwise across runs"
+        assert torch.equal(got, via), "autograd did not run the gradient kernel"
+        assert torch.allclose(got, want, rtol=1e-9, atol=0.0), (got, want)
+        err = float((got - want).abs().max())
+        log(f"  se_cov_grad {n_i}x{n_j} f64: {got.tolist()} against "
+            f"{want.tolist()}, largest relative difference "
+            f"{float(((got - want).abs() / want.abs()).max()):.3e}")
+        ms = time_ms(lambda: se.se_cov_grad(*gargs), inner=10)
+        plain = time_ms(lambda: se_cov_grad_ref(*gargs), reps=10)
+        n_bytes = 8 * (2 * (n_i + n_j) * l + l + n_i + n_j + 1 + n_i * n_j
+                       + l)
+        records["grad"] = report("se_cov_grad", f"{n_i}x{n_j} l={l} float64",
+                                 ms, plain, n_bytes, grad_ops, "float64_simt",
+                                 err)
+        records["grad"]["device_ms"] = device_ms_per_call(
+            f"se_cov_grad {n_i}x{n_j} float64", lambda: se.se_cov_grad(*gargs))
+    log("  library_ms is null for both: no single PyTorch call computes the "
+        "SE double-integral product or its lengthscale gradient")
+    return records
+
+
 # ------------------------------------------------------------------ phase 3
 def _snippet_keys_per_agg(results):
     from repro_torch.core.store import group_rows
@@ -434,7 +597,12 @@ def _stage_timers(eng):
     eng.store.record = timed("record", eng.store.record)
     orig_apply = Synopsis._apply_add
     Synopsis._apply_add = timed("ingest", orig_apply)
-    return acc, lambda: setattr(Synopsis, "_apply_add", orig_apply)
+
+    def restore():  # the timers wrap instance attributes: drop them
+        del eng.scan.eval_block, eng.store.improve_groups, eng.store.record
+        Synopsis._apply_add = orig_apply
+
+    return acc, restore
 
 
 def _assert_healthy(eng):
@@ -448,13 +616,58 @@ def _assert_healthy(eng):
     assert not sick, f"quarantined synopses on the main path: {sick}"
 
 
-def main_path(seed):
+def _serve(eng, queries, target=0.02):
+    """Serve ``queries`` one by one at ``target``; returns the results, the
+    latencies (ms, host clock around a synchronised call), each query's
+    ``batches_used`` and the wall time (s)."""
+    import torch
+
+    lat, used, results = [], [], []
+    t0 = time.perf_counter()
+    for q in queries:
+        t = time.perf_counter()
+        r = eng.execute(q, target_rel_error=target)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        used.append(r.batches_used)
+        results.append(r)
+    return results, np.asarray(lat) * 1e3, used, time.perf_counter() - t0
+
+
+def _coverage(rel, results):
+    """Right answers: finite cells close to the exact answers over all rows,
+    which come from a plain PyTorch scan (``Relation.exact_answer``), not
+    from K1. Returns (cells inside their 95% interval, cells, median
+    relative error)."""
     import torch
     from repro_torch.aqp import queries as Q
+    from repro_torch.utils.stats import confidence_multiplier
+
+    alpha = float(confidence_multiplier(0.95))
+    covered, rel_err = 0, []
+    for r in results:
+        if r.plan is None:  # a group-by that found no groups: no cells
+            continue
+        exact = rel.exact_answer(r.plan.snippets)
+        cells = Q.assemble_results(r.plan, exact, torch.zeros_like(exact),
+                                   rel.cardinality)
+        for c, e in zip(r.cells, cells):
+            assert np.isfinite(c["estimate"]) and np.isfinite(c["beta2"])
+            err = abs(c["estimate"] - e["estimate"])
+            rel_err.append(err / max(abs(e["estimate"]), 1e-300))
+            covered += err <= alpha * np.sqrt(c["beta2"])
+    med = float(np.median(rel_err))
+    log(f"against exact answers over all {rel.cardinality} rows (plain "
+        f"scan): median relative error {med:.4e}, max {max(rel_err):.4e}, "
+        f"95% intervals cover {covered}/{len(rel_err)} cells")
+    return int(covered), len(rel_err), med
+
+
+def main_path(seed):
+    import torch
     from repro_torch.aqp.workload import tpch_like, tpch_workload
     from repro_torch.core.engine import EngineConfig, VerdictEngine
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.utils.stats import confidence_multiplier
 
     log("== phase 3: main path, TPC-H SF1 lineitem cardinality")
     n_rows = 6_001_215
@@ -489,49 +702,20 @@ def main_path(seed):
     _assert_healthy(eng)
 
     serve = tpch_workload(seed + 1, rel.schema, 200)
-    lat, used = [], []
     reset_launch_counts()
-    t0 = time.perf_counter()
-    results = []
-    for q in serve:
-        t = time.perf_counter()
-        r = eng.execute(q, target_rel_error=0.02)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t)
-        used.append(r.batches_used)
-        results.append(r)
-    serve_s = time.perf_counter() - t0
+    results, lat_ms, used, serve_s = _serve(eng, serve)
     counts = launch_counts()
-    lat_ms = np.asarray(lat) * 1e3
     log(f"serve: 200 queries in {serve_s:.3f} s = {200 / serve_s:.2f} q/s, "
         f"p50 {np.percentile(lat_ms, 50):.3f} ms, "
         f"p99 {np.percentile(lat_ms, 99):.3f} ms, "
         f"mean batches_used {np.mean(used):.3f}, launches {counts}")
     assert counts["fused_masked_scan"] > 0 and counts["gp_batch_infer"] > 0, (
         counts)
+    # Every covariance build (ingest, improve) runs K3's forward.
+    assert counts["se_cov_matrix"] > 0 and counts["se_cov_grad"] == 0, counts
     eng.drain()
     _assert_healthy(eng)
-    # Right answers: finite cells close to the exact answers over all rows,
-    # which come from a plain PyTorch scan (``Relation.exact_answer``), not
-    # from K1.
-    alpha = float(confidence_multiplier(0.95))
-    covered, rel_err = 0, []
-    for r in results:
-        if r.plan is None:  # a group-by that found no groups: no cells
-            continue
-        exact = rel.exact_answer(r.plan.snippets)
-        cells = Q.assemble_results(r.plan, exact, torch.zeros_like(exact),
-                                   rel.cardinality)
-        for c, e in zip(r.cells, cells):
-            assert np.isfinite(c["estimate"]) and np.isfinite(c["beta2"])
-            err = abs(c["estimate"] - e["estimate"])
-            rel_err.append(err / max(abs(e["estimate"]), 1e-300))
-            covered += err <= alpha * np.sqrt(c["beta2"])
-    med = float(np.median(rel_err))
-    log(f"against exact answers over all {rel.cardinality} rows (plain "
-        f"scan): median "
-        f"relative error {med:.4e}, max {max(rel_err):.4e}, 95% intervals "
-        f"cover {covered}/{len(rel_err)} cells")
+    covered, n_cells, med = _coverage(rel, results)
     assert med <= 0.02, med
 
     # Where the time goes: 50 more queries with synchronised stage timers.
@@ -569,7 +753,172 @@ def main_path(seed):
             "measured)")
     return counts, {"qps": 200 / serve_s,
                     "p50_ms": float(np.percentile(lat_ms, 50)),
-                    "p99_ms": float(np.percentile(lat_ms, 99))}, rel, cfg
+                    "p99_ms": float(np.percentile(lat_ms, 99)),
+                    "batches_used": float(np.mean(used)),
+                    "covered": covered, "cells": n_cells}, rel, cfg, eng
+
+
+# ------------------------------------------------------------------ phase 6
+REFIT_STEPS = 150  # VerdictEngine.refit's defaults (steps=150, lr=0.1)
+
+
+def _spy_fits(fits):
+    """Record every ``learning.fit`` of a refit: n, the loss history, the
+    fitted params and the wall time (s, synchronised). Returns the undo."""
+    import torch
+    from repro_torch.core import learning
+
+    orig = learning.fit
+
+    def fit(snippets, theta, beta2, schema, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, hist = orig(snippets, theta, beta2, schema, **kw)
+        torch.cuda.synchronize()
+        fits.append(dict(n=int(theta.shape[0]), hist=hist.numpy(),
+                         params=params, s=time.perf_counter() - t))
+        return params, hist
+
+    learning.fit = fit
+    return lambda: setattr(learning, "fit", orig)
+
+
+def _params_of(store):
+    from repro_torch.core.types import to_numpy
+
+    return {k: [to_numpy(t) for t in (s.params.log_ls, s.params.log_sigma2,
+                                      s.params.mu)]
+            for k, s in sorted(store.items())}
+
+
+def learning_and_checkpoints(eng, rel, cfg, seed, e2e3):
+    """Phase 6 on phase 3's engine: refit with the defaults, checkpoint and
+    restore into a fresh engine (bitwise), serve fresh queries after the
+    refit, then a drifted data append on every synopsis."""
+    import tempfile
+
+    import torch
+    from repro_torch.aqp.workload import tpch_workload
+    from repro_torch.core.append import estimate_append_stats
+    from repro_torch.core.engine import VerdictEngine
+    from repro_torch.core.types import AVG, to_numpy
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    log(f"== phase 6: learning and checkpoints on phase 3's engine, "
+        f"{rel.cardinality} rows, capacity {cfg.capacity}")
+    # 1. refit with the defaults.
+    eng.drain()
+    keys = [k for k, syn in eng.store.items()
+            if syn.n >= 3 and not syn.quarantined]
+    fits = []
+    undo = _spy_fits(fits)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        eng.refit()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    refit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    assert len(fits) == len(keys) > 0, (len(fits), keys)
+    finite_steps = 0
+    for key, f in zip(keys, fits):
+        h, p = f["hist"], f["params"]
+        finite_steps += int(np.isfinite(h).sum())
+        log(f"  refit {key}: n {f['n']}, NLL {h[0]:.6f} -> {h[-1]:.6f} "
+            f"({int(np.isfinite(h).sum())} of {len(h)} steps finite), "
+            f"lengthscales {np.exp(to_numpy(p.log_ls)).tolist()}, "
+            f"sigma2 {float(p.sigma2):.6e}, mu {float(p.mu):.6e}, "
+            f"{f['s']:.3f} s ({1e3 * f['s'] / len(h):.3f} ms per step)")
+        assert h[-1] < h[0], (key, h[0], h[-1])
+        assert all(bool(torch.isfinite(t).all()) for t in (
+            p.log_ls, p.log_sigma2, p.mu)), key
+    _assert_healthy(eng)
+    log(f"refit: {len(fits)} synopses in {refit_s:.3f} s, launches {counts}"
+        f", {finite_steps} finite steps")
+    assert counts["se_cov_matrix"] >= REFIT_STEPS * len(fits), counts
+    assert counts["se_cov_grad"] >= REFIT_STEPS * len(fits), counts
+
+    # 2. Checkpoint right after the refit (a refit ends in a full rebuild,
+    # which is what a restore computes), restore into a fresh engine, and
+    # serve 20 queries through both in lockstep.
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        eng.save_synopses(mgr, step=1)
+        save_s = time.perf_counter() - t0
+        fresh = VerdictEngine(rel, cfg)
+        t0 = time.perf_counter()
+        extra = fresh.load_synopses(mgr)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(d) for f in fs)
+    assert extra == {"kind": "verdict-synopses"}, extra
+    want, got = eng.synopses_state_dict(), fresh.synopses_state_dict()
+    assert want.keys() == got.keys()
+    for name in want:
+        assert want[name].keys() == got[name].keys()
+        for k in want[name]:
+            assert np.array_equal(want[name][k], got[name][k]), (name, k)
+    lockstep = tpch_workload(seed + 12, rel.schema, 20)
+    for i, q in enumerate(lockstep):
+        a = eng.execute(q, target_rel_error=0.02)
+        b = fresh.execute(q, target_rel_error=0.02)
+        assert a.batches_used == b.batches_used and a.cells == b.cells, (
+            f"restored engine differs on lockstep query {i}")
+    fresh.drain()
+    _assert_healthy(fresh)
+    log(f"checkpoint: saved in {save_s:.3f} s ({size} bytes), restored into "
+        f"a fresh engine in {load_s:.3f} s; every state_dict array bitwise "
+        f"equal; 20 lockstep queries bitwise equal (cells, batches_used)")
+    del fresh
+
+    # 3. Serve 200 fresh queries after the refit.
+    results, lat_ms, used, serve_s = _serve(
+        eng, tpch_workload(seed + 11, rel.schema, 200))
+    eng.drain()
+    _assert_healthy(eng)
+    covered, n_cells, med = _coverage(rel, results)
+    e2e = {"qps": 200 / serve_s, "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "batches_used": float(np.mean(used)), "covered": covered,
+           "cells": n_cells, "refit_s": refit_s}
+    log(f"serve after refit: 200 fresh queries {e2e['qps']:.2f} q/s, p50 "
+        f"{e2e['p50_ms']:.3f} ms, p99 {e2e['p99_ms']:.3f} ms, mean "
+        f"batches_used {e2e['batches_used']:.3f}, coverage {covered}/"
+        f"{n_cells}; phase 3 before the refit: {e2e3['qps']:.2f} q/s, p50 "
+        f"{e2e3['p50_ms']:.3f} ms, p99 {e2e3['p99_ms']:.3f} ms, mean "
+        f"batches_used {e2e3['batches_used']:.3f}, coverage "
+        f"{e2e3['covered']}/{e2e3['cells']}")
+
+    # 4. A drifted append: 20% new rows, measures shifted by +0.8.
+    n_new = rel.cardinality // 5
+    new = rel.take(np.arange(n_new))
+    new.measures = new.measures + 0.8
+    stats = estimate_append_stats(rel.measures[:500], new.measures[:500],
+                                  rel.cardinality, n_new)
+    log(f"append: {n_new} rows, mu {stats.mu.tolist()}, eta2 "
+        f"{stats.eta2.tolist()}, f {stats.frac:.6f}")
+    grown = 0
+    for key, syn in sorted(eng.store.items()):
+        sd = syn.state_dict()
+        b2_before, th_before = to_numpy(syn.beta2()), to_numpy(syn.theta())
+        syn.apply_append(stats)
+        b2_after, th_after = to_numpy(syn.beta2()), to_numpy(syn.theta())
+        assert np.all(b2_after >= b2_before), key  # beta^2 only grows
+        avg = sd["agg"] == AVG
+        shift = stats.frac * stats.mu[sd["measure"]]
+        assert np.array_equal(th_after[avg], th_before[avg] + shift[avg]), key
+        assert np.array_equal(th_after[~avg], th_before[~avg]), key
+        grown += int((b2_after > b2_before).sum())
+    _assert_healthy(eng)
+    log(f"append applied to {len(eng.store)} synopses: beta^2 grew on "
+        f"{grown} rows and fell on none; every AVG theta moved by f*mu_k, "
+        "every FREQ theta unchanged")
+    return counts, e2e
 
 
 # ------------------------------------------------------------------ phase 5
@@ -676,7 +1025,7 @@ def facade_and_mesh(rel, cfg, seed):
         assert not st["health"]["quarantined"], st["health"]["quarantined"]
         _assert_healthy(sess.engine)
         runs[name] = dict(answers=answers, accepted=accepted, blocks=blocks,
-                          counts=counts, stats=st, explain=rep)
+                          counts=counts, stats=st, explain=rep, sess=sess)
     loc, msh = runs["local"], runs["mesh"]
     # Bitwise: every answer (cells, batches_used) and every improve's
     # accepted mask of the mesh session equal the local session's; the
@@ -716,8 +1065,42 @@ def facade_and_mesh(rel, cfg, seed):
     log(f"mesh answers bitwise equal to local on all {len(loc['answers'])}"
         f" queries (cells, batches_used; accepted of {len(loc['accepted'])} "
         "improves); each stream ended on the other session's execute")
+    _refit_sessions(runs, rel, seed, budget)
     e2e["round_ms"] = _scan_round_ms(rel, seed, mesh)
     return msh["counts"], e2e
+
+
+def _refit_sessions(runs, rel, seed, budget):
+    """``Session.refit()`` on the local and the mesh session alike, then 20
+    more queries each: the mesh session's learned params and answers must be
+    bitwise the local one's (placement moves work, never values)."""
+    import torch
+    from repro_torch.aqp.workload import tpch_workload
+
+    post = tpch_workload(seed + 13, rel.schema, 20)
+    for name in ("local", "mesh"):
+        sess = runs[name]["sess"]
+        t0 = time.perf_counter()
+        sess.refit()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        runs[name]["params"] = _params_of(sess.store)
+        runs[name]["post"] = [sess.execute(q, budget) for q in post]
+        sess.drain()
+        _assert_healthy(sess.engine)
+        log(f"{name}: refit of {len(sess.store)} synopses (fill "
+            f"{[syn.n for _, syn in sorted(sess.store.items())]}) in "
+            f"{took:.3f} s")
+    loc, msh = runs["local"], runs["mesh"]
+    assert loc["params"].keys() == msh["params"].keys()
+    for key in loc["params"]:
+        assert all(np.array_equal(a, b) for a, b in zip(
+            loc["params"][key], msh["params"][key])), key
+    diff = [i for i, (a, b) in enumerate(zip(loc["post"], msh["post"]))
+            if not _same_answer(a, b)]
+    assert not diff, f"after refit, mesh answers differ on queries {diff}"
+    log("after Session.refit: learned params and the next 20 answers of the "
+        "mesh session bitwise equal to the local session's")
 
 
 def _scan_round_ms(rel, seed, mesh):
@@ -965,11 +1348,11 @@ def against_plain(seed):
         log(f"{device or 'cuda'} engine"
             f"{f' ({threads} CPU thread)' if threads else ''}"
             f": {took:.2f} s, launches {counts}")
-        return res, counts
+        return res, counts, eng
 
-    rg, g_counts = run(None)
-    rc, c_counts = run("cpu")
-    rc1, _ = run("cpu", threads=1)
+    rg, g_counts, g_eng = run(None)
+    rc, c_counts, c_eng = run("cpu")
+    rc1, _, _ = run("cpu", threads=1)
     assert g_counts["fused_masked_scan"] > 0 and g_counts[
         "gp_batch_infer"] > 0, g_counts
     assert all(v == 0 for v in c_counts.values()), c_counts
@@ -993,10 +1376,41 @@ def against_plain(seed):
                "accepted": FLIP_FACTOR * d["theta"]}
     bad = [f for f in d["flips"] if f[4] > allowed[f[1]]]
     assert not bad, f"flips outside {allowed} of their threshold: {bad}"
-    return {"avg_rel": d["avg"], "count_sum_rel": d["other"],
-            "count_sum_of_half_width": d["other_ci"], "beta2_rel": d["beta2"],
-            "stop_input_rel": d["stop"], "theta_input_rel": d["theta"],
-            "flips": len(d["flips"])}
+    out = {"avg_rel": d["avg"], "count_sum_rel": d["other"],
+           "count_sum_of_half_width": d["other_ci"], "beta2_rel": d["beta2"],
+           "stop_input_rel": d["stop"], "theta_input_rel": d["theta"],
+           "flips": len(d["flips"])}
+    # Both engines refit with the same few steps (the CPU engine is the slow
+    # side), then 20 more queries are held to the same rule.
+    for eng in (g_eng, c_eng):
+        t0 = time.perf_counter()
+        eng.refit(steps=PHASE4_REFIT_STEPS)
+        log(f"{eng.device} engine: refit(steps={PHASE4_REFIT_STEPS}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+    g_par, c_par = _params_of(g_eng.store), _params_of(c_eng.store)
+    assert g_par.keys() == c_par.keys()
+    ls_rel = max(float(np.max(np.abs(np.exp(g_par[k][0]) - np.exp(c_par[k][0]))
+                              / np.exp(c_par[k][0]))) for k in c_par)
+    log(f"fitted lengthscales, CUDA against CPU: largest relative difference "
+        f"{ls_rel:.3e}")
+    test2 = tpch_workload(seed + 14, rels["cpu"].schema, 20)
+    rg2 = [g_eng.execute(q, target_rel_error=target) for q in test2]
+    rc2 = [c_eng.execute(q, target_rel_error=target) for q in test2]
+    for eng in (g_eng, c_eng):
+        eng.drain()
+        _assert_healthy(eng)
+    d2 = _compare(rg2, rc2, cfg, target)
+    _log_compare("CUDA vs CPU after refit", d2)
+    assert d2["avg"] <= 1e-8, d2["avg"]
+    assert d2["other_ci"] <= 0.1, d2["other_ci"]
+    allowed = {"batches_used": FLIP_FACTOR * d2["stop"],
+               "accepted": FLIP_FACTOR * d2["theta"]}
+    bad = [f for f in d2["flips"] if f[4] > allowed[f[1]]]
+    assert not bad, f"flips outside {allowed} of their threshold: {bad}"
+    out.update(refit_ls_rel=ls_rel, refit_avg_rel=d2["avg"],
+               refit_count_sum_of_half_width=d2["other_ci"],
+               refit_flips=len(d2["flips"]))
+    return out
 
 
 def main():
@@ -1024,11 +1438,15 @@ def main():
     k2 = check_k2(args.seed, rel.device)
     k4 = check_k4(rel, args.seed)
     k5 = check_k5(rel, args.seed)
+    k3 = check_k3(args.seed, rel.device)
     del rel
     if args.kernels_only:
         log(f"kernels-only run done in {time.perf_counter() - t_start:.1f} s")
         return 0
-    counts, e2e, rel, cfg = main_path(args.seed)
+    counts, e2e, rel, cfg, eng = main_path(args.seed)
+    refit_counts, e2e6 = learning_and_checkpoints(eng, rel, cfg, args.seed,
+                                                  e2e)
+    del eng
     mesh_counts, e2e5 = facade_and_mesh(rel, cfg, args.seed)
     k5_launches = k5_on_the_scan_placement(rel, cfg, args.seed)
     del rel
@@ -1050,11 +1468,25 @@ def main():
              source="src/repro_torch/csrc/range_mask_agg.cu",
              replaces=K5_REPLACES, launches=k5_launches,
              shape=f"T={SF1_BATCH_T} Q=128 f32", **k5),
+        dict(name="se_cov_matrix", route="cuda",
+             source="src/repro_torch/csrc/se_covariance.cu",
+             replaces=K3_REPLACES, launches=refit_counts["se_cov_matrix"],
+             shape=f"{SYNOPSIS_C}x{SYNOPSIS_C} l=3 f64",
+             **k3[(SYNOPSIS_C, "float64")]),
+        dict(name="se_cov_grad", route="cuda",
+             source="src/repro_torch/csrc/se_covariance.cu",
+             replaces=K3_REPLACES, launches=refit_counts["se_cov_grad"],
+             shape=f"{SYNOPSIS_C}x{SYNOPSIS_C} l=3 f64", **k3["grad"]),
     ]
     log("library_ms is null for the fused masked scan and the fused GP "
         "improve: no single PyTorch call computes either; masked_partials' "
         "is one cuBLAS DGEMM, mask.T @ [m, m^2, 1]")
-    log(f"end to end: phase 3 {json.dumps(e2e)}; phase 5 {json.dumps(e2e5)};"
+    log("launches: K1, K2 in phase 3's serve stream "
+        f"({counts['se_cov_matrix']} K3 forward launches there too); K4 in "
+        "phase 5's mesh session; K5 over the SF1 batches; K3 forward and "
+        "gradient in phase 6's refit")
+    log(f"end to end: phase 3 {json.dumps(e2e)}; phase 6 {json.dumps(e2e6)}; "
+        f"phase 5 {json.dumps(e2e5)};"
         f" CUDA vs CPU {json.dumps(worst)};"
         f" total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")

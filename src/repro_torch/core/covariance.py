@@ -10,32 +10,27 @@ dimension attributes (Eq. 10 / Eq. 16):
 with AVG answers normalized by the predicate-region size |F_i||F_j|
 (Appendix F.3's mu estimators imply exactly this normalization).
 
-Plain PyTorch on whichever device the snippets live; float64 throughout
-(the SE double integral is an inclusion-exclusion whose difference is
-O(width²) — catastrophic cancellation in f32 for narrow predicates).
+The numeric factor of every covariance build goes through the SE-covariance
+kernel's wrapper (``repro_torch.kernels.se_covariance``): the CUDA kernel on
+the card (its gradient kernel under autograd, for the lengthscales), the
+plain version on the CPU. Everything else is plain PyTorch on whichever
+device the snippets live, float64 throughout (the SE double integral is an
+inclusion-exclusion whose difference is O(width²) — catastrophic
+cancellation in f32 for narrow predicates).
 """
 from __future__ import annotations
 
 import torch
-from torch.special import erf
 
 from repro_torch.core.types import AVG, F64, GPParams, SnippetBatch
+from repro_torch.kernels.se_covariance import ops as se_ops
+from repro_torch.kernels.se_covariance.ref import (  # noqa: F401 — re-export
+    SQRT_PI,
+    se_double_integral,
+)
 
 # Widening for degenerate (equality) numeric ranges, in normalized units.
 EPS_WIDTH = 1e-6
-SQRT_PI = 1.7724538509055159
-
-
-def _antideriv(u, z):
-    """F(u) with u = x - y: d^2F/dxdy = exp(-u^2/z^2) (Appendix F.1)."""
-    return (-0.5 * z * z * torch.exp(-((u / z) ** 2))
-            - 0.5 * SQRT_PI * z * u * erf(u / z))
-
-
-def se_double_integral(a, b, c, d, z):
-    """∫_a^b ∫_c^d exp(-(x-y)^2/z^2) dy dx, elementwise/broadcast."""
-    return (_antideriv(b - d, z) - _antideriv(b - c, z)
-            - _antideriv(a - d, z) + _antideriv(a - c, z))
 
 
 def widened(lo, hi):
@@ -46,16 +41,21 @@ def widened(lo, hi):
 
 def numeric_factors(bi: SnippetBatch, bj: SnippetBatch, params: GPParams):
     """(n_i, n_j) product over numeric dims of the SE double integrals, and
-    the volumes ∏_k width of each side (for AVG normalization)."""
+    the volumes ∏_k width of each side (for AVG normalization).
+
+    The product is the SE-covariance kernel's function with ``sigma2 = 1``
+    and unit norms (``cov_matrix`` applies sigma², the categorical factor
+    and the AVG norms outside, so only the lengthscales' gradient goes
+    through the kernel). On the CPU that is exactly ``prod_k clamp(II_k,
+    0)``.
+    """
     lo_i, hi_i, w_i = widened(bi.lo, bi.hi)  # (n_i, l)
     lo_j, hi_j, w_j = widened(bj.lo, bj.hi)  # (n_j, l)
-    z = params.ls  # (l,)
-    g = se_double_integral(
-        lo_i[:, None, :], hi_i[:, None, :], lo_j[None, :, :], hi_j[None, :, :], z
-    )  # (n_i, n_j, l)
-    # The SE integral is mathematically positive; clamp fp rounding.
-    g = torch.clamp(g, min=0.0)
-    return g.prod(-1), w_i.prod(-1), w_j.prod(-1)
+    ones_i = torch.ones((bi.n,), dtype=F64, device=lo_i.device)
+    ones_j = torch.ones((bj.n,), dtype=F64, device=lo_j.device)
+    num = se_ops.se_cov_matrix(lo_i, hi_i, lo_j, hi_j, params.ls, 1.0,
+                               ones_i, ones_j)
+    return num, w_i.prod(-1), w_j.prod(-1)
 
 
 def categorical_factors(bi: SnippetBatch, bj: SnippetBatch):
@@ -119,3 +119,13 @@ def prior_mean(b: SnippetBatch, params: GPParams):
     """Prior mean per snippet (Appendix F.3): AVG -> mu; FREQ -> mu * |F_i|."""
     size = region_size(b)
     return torch.where(b.agg == AVG, params.mu, params.mu * size)
+
+
+def analytic_sigma2_mu(b: SnippetBatch, theta):
+    """Analytic estimates of (sigma_g^2, mu) from past answers (Appendix
+    F.3). The variance has ddof 0, as ``jnp.var``."""
+    size = region_size(b)
+    dens = torch.where(b.agg == AVG, theta, theta / size)
+    mu = dens.mean()
+    sigma2 = torch.clamp(dens.var(correction=0), min=1e-12)
+    return sigma2, mu

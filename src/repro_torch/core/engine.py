@@ -23,9 +23,15 @@ default, ``ShardedSynopsisStore`` + ``ShardedScanPlacement`` over a mesh
 Device: the engine runs on ``device`` (``None``: the CUDA card, failing
 loudly when there is none). The relation must already live there. On the
 card every scan launches a scan kernel (``fused_masked_scan`` locally,
-``masked_partials`` under a mesh) and every improve the ``gp_batch_infer``
-kernel, whatever ``use_kernels`` says; on the CPU the plain scan and the
-improve kernel's plain version run.
+``masked_partials`` under a mesh), every improve the ``gp_batch_infer``
+kernel, whatever ``use_kernels`` says, and every covariance build the
+SE-covariance kernel (``refit``'s Adam steps its gradient kernel too); on
+the CPU the plain versions run.
+
+Lifecycle beyond serving: ``refit`` (offline learning, Appendix A),
+``save_synopses`` / ``load_synopses`` through a
+``repro_torch.ft.checkpoint.CheckpointManager`` (the reference's format:
+either package's checkpoint loads in the other), and ``heal``.
 
 ``learning=False`` turns the engine into the NoLearn baseline of §8.1.
 """
@@ -124,8 +130,12 @@ class VerdictEngine:
         return self.store.for_key(agg_key(agg, measure))
 
     def drain(self):
-        """Barrier over the store's async ingest (snapshot boundary)."""
+        """Barrier over the store's async ingest (snapshot/refit boundary)."""
         self.store.drain()
+
+    def refit(self, steps: int = 150, lr: float = 0.1, learn_sigma: bool = False):
+        """Offline learning pass (paper Algorithm 1). Drains async ingest."""
+        self.store.refit(steps=steps, lr=lr, learn_sigma=learn_sigma)
 
     def ingest_stats(self) -> Dict[str, dict]:
         """Per-synopsis async-ingest back-pressure telemetry (structured
@@ -135,11 +145,13 @@ class VerdictEngine:
     def heal(self, manager=None, step: Optional[int] = None) -> Dict[str, bool]:
         """Heal every quarantined synopsis and rejoin it to serving.
 
-        ``manager``: optional checkpoint manager exposing
-        ``restore_blind(step) -> (states, extra)``; quarantined keys restore
-        from it and replay their parked batches. Without one (or when its
-        restore fails) they rebuild from their own row arrays. Returns
-        ``{state_key: healed}`` for the keys that were quarantined.
+        With a ``CheckpointManager`` (or any object exposing
+        ``restore_blind(step) -> (states, extra)``), quarantined keys
+        restore from the last good committed checkpoint and replay their
+        parked batches on top. Without one (or when its restore fails, or
+        for keys absent from the checkpoint) they rebuild from their own row
+        arrays. Returns ``{state_key: healed}`` for the keys that were
+        quarantined.
         """
         states = None
         if manager is not None:
@@ -236,11 +248,38 @@ class VerdictEngine:
     def load_synopses_state_dict(self, state: Dict[str, dict]):
         """Restore a store snapshot — this package's or the JAX reference's
         ``synopses_state_dict()`` as it is. Σ⁻¹ and α are rebuilt on this
-        engine's device. A reference ``"intel"`` payload is ignored: this
-        package has no answer cache."""
+        engine's device, and each key is placed by this engine's store, so
+        a snapshot re-places onto any mesh. A reference ``"intel"`` payload
+        (answer cache and router state) is ignored with a warning: this
+        package has no workload-intelligence plane yet."""
         state = dict(state)
-        state.pop("intel", None)
+        if state.pop("intel", None) is not None:
+            warnings.warn(
+                "ignoring the snapshot's 'intel' payload: this engine has no "
+                "answer cache or router to restore it into",
+                RuntimeWarning, stacklevel=2)
         self.store.load_state_dict(state)
+
+    def save_synopses(self, manager, step: int):
+        """Checkpoint the learned synopses through a ``CheckpointManager``:
+        one payload, one CRC-verified commit, in the reference's format."""
+        manager.save(step, self.store.state_dict(),
+                     extra={"kind": "verdict-synopses"})
+
+    def load_synopses(self, manager, step: Optional[int] = None):
+        """Restore synopses from a ``CheckpointManager`` checkpoint (this
+        package's or the JAX reference's); returns the checkpoint's
+        ``extra``.
+
+        This is what makes the engine smarter across process restarts: a new
+        process pays zero queries to recover everything past sessions
+        learned, re-placed onto whatever devices this engine's store spans.
+        A checkpoint's ``"intel"`` payload is ignored with a warning
+        (``load_synopses_state_dict``).
+        """
+        state, extra = manager.restore_blind(step)
+        self.load_synopses_state_dict(state)
+        return extra
 
     # -------------------------------------------------------------- batched
     def execute_many(

@@ -11,7 +11,8 @@ to raw ``Synopsis`` dicts. Store protocol:
   kernel branch does, grouped by device;
 - ``record(snippets, raw)`` — enqueue final raw answers for learning
   (async per synopsis);
-- ``drain`` / ``ingest_stats`` / ``quarantined`` / ``heal`` / ``stats``;
+- ``drain`` / ``refit`` / ``ingest_stats`` / ``quarantined`` / ``heal`` /
+  ``stats``;
 - ``state_dict`` / ``load_state_dict`` — ``"agg<k>-measure<m>"``-keyed,
   shard-tagged numpy payloads in the reference's layout, so a JAX engine's
   ``synopses_state_dict()`` loads here as it is.
@@ -232,6 +233,13 @@ class SynopsisStore:
         """Barrier over every synopsis' async ingest queue."""
         for syn in self._synopses.values():
             syn.drain()
+
+    def refit(self, steps: int = 150, lr: float = 0.1,
+              learn_sigma: bool = False):
+        """Offline learning pass (paper Algorithm 1) over every synopsis, in
+        turn, each on its own device. Drains async ingest."""
+        for syn in self._synopses.values():
+            syn.refit(steps=steps, lr=lr, learn_sigma=learn_sigma)
 
     def ingest_stats(self) -> Dict[str, dict]:
         """Per-synopsis async-ingest back-pressure telemetry, keyed by the

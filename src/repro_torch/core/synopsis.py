@@ -42,7 +42,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import covariance, inference, validation
+from repro_torch.core import covariance, inference, learning, validation
+from repro_torch.core.append import AppendStats, adjust_answers
 from repro_torch.core.types import (
     F64,
     FREQ,
@@ -160,6 +161,25 @@ def _drain_live_queues():
 
 MAX_PENDING_DEFAULT = 64  # ingest back-pressure bound (pending batches)
 
+# PyTorch loads its CUDA linear-algebra library on the process' first CUDA
+# linalg call, and that loader is not thread-safe: two ingest threads making
+# their first call together make one of them raise ("lazy wrapper should be
+# called at most once") and quarantine its synopsis. ``_load_cuda_linalg``
+# makes that first call once, under a lock, from the thread that creates a
+# synopsis on the card, before any of its ingest threads starts.
+_CUDA_LINALG_LOCK = threading.Lock()
+_CUDA_LINALG_LOADED = False
+
+
+def _load_cuda_linalg(device: torch.device):
+    global _CUDA_LINALG_LOADED
+    if device.type != "cuda" or _CUDA_LINALG_LOADED:
+        return
+    with _CUDA_LINALG_LOCK:
+        if not _CUDA_LINALG_LOADED:
+            torch.linalg.cholesky_ex(torch.eye(1, dtype=F64, device=device))
+            _CUDA_LINALG_LOADED = True
+
 
 class SynopsisQuarantinedError(RuntimeError):
     """Raised by ``state_dict`` on a quarantined synopsis: a model built on a
@@ -272,6 +292,7 @@ class Synopsis:
         self.async_ingest = bool(async_ingest)
         self.max_pending = int(max_pending)
         self.device = resolve_device(device)
+        _load_cuda_linalg(self.device)
         self.min_fill_bucket = int(min_fill_bucket)
         self.min_q_bucket = int(min_q_bucket)
         self.name: Optional[str] = None  # store-assigned state_key (fault key)
@@ -314,6 +335,17 @@ class Synopsis:
         return SnippetBatch.from_numpy(
             self._lo[rows], self._hi[rows], self._cat[rows], self._agg[rows],
             self._measure[rows], self.device)
+
+    def theta(self) -> torch.Tensor:
+        """The stored raw answers (row order), on this synopsis' device."""
+        self.drain()
+        return self._put(np.array(self._theta[: self.n]))
+
+    def beta2(self) -> torch.Tensor:
+        """The stored raw answers' variances (row order), on this synopsis'
+        device."""
+        self.drain()
+        return self._put(np.array(self._beta2[: self.n]))
 
     @staticmethod
     def _key(lo, hi, cat, agg, measure):
@@ -603,6 +635,47 @@ class Synopsis:
         resid = (self._put(self._theta[rows])
                  - covariance.prior_mean(batch, self.params))
         self._alpha = self._sigma_inv @ resid
+
+    # ------------------------------------------------------------------ refit
+    def refit(self, steps: int = 150, lr: float = 0.1,
+              learn_sigma: bool = False) -> GPParams:
+        """Offline learning (Appendix A): relearn params, rebuild the model.
+
+        Drains first. A quarantined synopsis skips refit (its row arrays may
+        hold a half-applied batch, so learning waits for ``heal()``), and so
+        does one with fewer than 3 rows; either returns its params as they
+        are. The fit runs on this synopsis' device.
+        """
+        self.drain()
+        if self.quarantined or self.n < 3:
+            return self.params
+        rows = np.asarray(self._order, dtype=np.int64)
+        batch = self._row_batch(rows)
+        self.params, _ = learning.fit(
+            batch, self._put(self._theta[rows]), self._put(self._beta2[rows]),
+            self.schema, steps=steps, lr=lr, learn_sigma=learn_sigma)
+        self.rebuild()
+        # The workload-intelligence slice adds ``self.generation += 1``
+        # here: relearned params change improved answers.
+        return self.params
+
+    # ------------------------------------------------------------- append (D)
+    def apply_append(self, stats: AppendStats):
+        """Adjust all stored answers for appended data (Appendix D, Lemma 3),
+        then rebuild the model. Drains first."""
+        self.drain()
+        if self.n == 0:
+            return
+        n = self.n
+        theta, beta2 = adjust_answers(
+            *(torch.from_numpy(a[:n]) for a in (self._theta, self._beta2,
+                                                self._measure, self._agg)),
+            stats)
+        self._theta[:n] = theta.numpy()
+        self._beta2[:n] = beta2.numpy()
+        self.rebuild()
+        # The workload-intelligence slice adds ``self.generation += 1``
+        # here: stored answers were rescaled for appended data.
 
     def rebuild(self):
         """Recompute Sigma for the current params, refactor, refresh alpha."""

@@ -22,6 +22,11 @@ Kernels:
   range_mask_agg    -- range compares times a precomputed (T, Q) mask,
                        folded against a payload (f32); the evaluator
                        ``eval_partials_kernel`` of the scan placement.
+  se_cov_matrix     -- the numeric factor of the GP covariance: the product
+                       of closed-form SE double integrals (f64 or f32), the
+                       forward of every covariance build.
+  se_cov_grad       -- its gradient with respect to the lengthscales (the
+                       backward of the learning path's NLL); same source.
 
 Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches``, which ``launch_counts`` reads and
@@ -42,7 +47,8 @@ RANGE_EPS = 1e-12  # shared predicate-boundary epsilon (kernel == plain version)
 SCAN_TILE_T = 512  # tuple-axis tile of the plain scan's fixed-order fold
 SCAN_TILE_Q = 128  # snippet-axis tile (= core.types.SNIPPET_TILE serve tiles)
 
-KERNEL_SOURCES = ("fused_masked_scan", "gp_batch_infer", "range_mask_agg")
+KERNEL_SOURCES = ("fused_masked_scan", "gp_batch_infer", "range_mask_agg",
+                  "se_covariance")
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -150,11 +156,14 @@ def _wrappers():
     from repro_torch.kernels.fused_masked_scan import ops as fms_ops
     from repro_torch.kernels.gp_batch_infer import ops as gp_ops
     from repro_torch.kernels.range_mask_agg import ops as rma_ops
+    from repro_torch.kernels.se_covariance import ops as se_ops
 
     return {"fused_masked_scan": fms_ops.fused_masked_scan,
             "masked_partials": fms_ops.masked_partials,
             "gp_batch_infer": gp_ops.gp_batch_infer,
-            "range_mask_agg": rma_ops.range_mask_agg}
+            "range_mask_agg": rma_ops.range_mask_agg,
+            "se_cov_matrix": se_ops.se_cov_matrix,
+            "se_cov_grad": se_ops.se_cov_grad}
 
 
 def launch_counts() -> Dict[str, int]:

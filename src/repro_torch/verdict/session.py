@@ -17,7 +17,10 @@ bitwise those of the local session) and the learned state (a
 ``ShardedSynopsisStore``). The mesh's first device must be the relation's:
 that is where masks are gathered and answers assembled.
 ``Session.stats()`` surfaces the scan placement, shard occupancy and
-ingest back-pressure.
+ingest back-pressure. ``refit`` relearns the GP parameters offline;
+``save`` / ``load`` checkpoint the learned synopses through a
+``CheckpointManager``, and ``heal(manager)`` restores quarantined keys from
+one.
 """
 from __future__ import annotations
 
@@ -253,6 +256,11 @@ class Session:
             yield QueryAnswer.from_result(res, final=final)
 
     # ------------------------------------------------------------- lifecycle
+    def refit(self, **kw):
+        """Offline learning pass (Algorithm 1); drains async ingest.
+        Keywords: ``steps``, ``lr``, ``learn_sigma``."""
+        self.engine.refit(**kw)
+
     def drain(self):
         """Barrier over async synopsis ingest (snapshot boundaries)."""
         self.engine.drain()
@@ -287,9 +295,18 @@ class Session:
     def heal(self, manager=None, step: Optional[int] = None) -> dict:
         """Heal every quarantined synopsis and rejoin it to serving.
 
-        ``manager``: optional checkpoint manager exposing
-        ``restore_blind(step)``; without one, quarantined keys rebuild from
-        their own row arrays. Returns ``{state_key: healed}`` for the keys
-        that were quarantined.
+        With a ``CheckpointManager``, keys restore from the last good
+        committed checkpoint and replay their parked ingest batches; without
+        one they rebuild from their own row arrays. Returns
+        ``{state_key: healed}`` for the keys that were quarantined.
         """
         return self.engine.heal(manager, step)
+
+    def save(self, manager, step: int):
+        """Checkpoint the learned synopses through a CheckpointManager."""
+        self.engine.save_synopses(manager, step)
+
+    def load(self, manager, step: Optional[int] = None):
+        """Restore learned synopses; the session resumes smarter. Returns
+        the checkpoint's ``extra``."""
+        return self.engine.load_synopses(manager, step)

@@ -14,10 +14,11 @@
 - the package imports neither ``jax`` nor ``repro``;
 - both engines' 95% intervals cover the same cells of the exact answers
   (``coverage_study``; as a script this file runs that study at any size,
-  e.g. the main path's recipe cut from TPC-H SF1 to a tenth:
+  e.g. the main path's recipe cut from TPC-H SF1 to a tenth, with
+  ``--refit STEPS`` refitting both engines between warm-up and serving:
 
       PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_engine.py \\
-          --rows 600000 --warm 2000 --serve 200
+          --rows 600000 --warm 2000 --serve 200 [--refit 150]
   ).
 """
 import argparse
@@ -212,16 +213,19 @@ def test_package_imports_neither_jax_nor_the_reference():
                    timeout=120)
 
 
-def coverage_study(jeng, peng, warm, serve, log=None):
-    """Warm both engines up with ``execute_many(warm)``, then serve ``serve``
-    one by one at a 2% target (the port's queries; the reference gets the
-    same ones). Returns, per engine, the cells' coverage flags and
-    estimates, plus the queries whose ``batches_used`` differ."""
+def coverage_study(jeng, peng, warm, serve, log=None, refit_steps=None):
+    """Warm both engines up with ``execute_many(warm)``, ``refit`` them
+    (``refit_steps`` Adam steps; None: no refit), then serve ``serve`` one
+    by one at a 2% target (the port's queries; the reference gets the same
+    ones). Returns, per engine, the cells' coverage flags and estimates,
+    plus the queries whose ``batches_used`` differ."""
     results = {}
     for name, eng, conv in (("jax", jeng, _to_reference_query),
                             ("port", peng, lambda q: q)):
         t0 = time.perf_counter()
         eng.execute_many([conv(q) for q in warm])
+        if refit_steps:
+            eng.refit(steps=refit_steps)
         results[name] = [eng.execute(conv(q), target_rel_error=0.02)
                          for q in serve]
         eng.drain()
@@ -272,6 +276,9 @@ def main():
     ap.add_argument("--warm", type=int, default=2000)
     ap.add_argument("--serve", type=int, default=200)
     ap.add_argument("--capacity", type=int, default=2000)
+    ap.add_argument("--refit", type=int, default=0,
+                    help="refit both engines with this many Adam steps "
+                         "between the warm-up and the served queries")
     args = ap.parse_args()
     cfg = dict(sample_rate=0.1, n_batches=10, capacity=args.capacity,
                seed=args.seed)
@@ -283,7 +290,7 @@ def main():
     out, differ = coverage_study(
         jeng, peng, pt_w.tpch_workload(args.seed, peng.schema, args.warm),
         pt_w.tpch_workload(args.seed + 1, peng.schema, args.serve),
-        log=lambda s: print(s, flush=True))
+        log=lambda s: print(s, flush=True), refit_steps=args.refit)
     for name, o in out.items():
         cov = o["covered"]
         print(f"{name}: 95% intervals cover {sum(cov)}/{len(cov)} cells "
