@@ -141,6 +141,45 @@ def device_ms_per_call(label, fn, n=10):
     return 1e3 * busy / n
 
 
+def ptxas_summary(out):
+    """``{kernel: "N registers, ... smem, spills"}`` from ``nvcc -Xptxas -v``
+    output: one line per compiled entry function."""
+    import re
+
+    res, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            res.setdefault(name, {})["spills"] = (
+                f"spill stores {m.group(1)} B, loads {m.group(2)} B")
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            res.setdefault(name, {})["used"] = (
+                f"{m.group(1)} registers, static smem "
+                f"{smem.group(1) if smem else 0} B")
+    names = list(res)
+    try:  # demangle where the toolkit's c++filt is at hand
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        shown = [n.replace("(anonymous namespace)::", "")
+                 for n in out.stdout.splitlines()]
+    except (OSError, subprocess.CalledProcessError):
+        shown = names
+    if len(shown) != len(names):
+        shown = names
+    return {d: ", ".join(res[k][f] for f in ("used", "spills")
+                         if f in res[k])
+            for k, d in zip(names, shown)}
+
+
 def bound(n_bytes, n_ops, dtype):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FLOPS[dtype] * 1e3
@@ -177,6 +216,14 @@ def phase_build():
     for name, out in logs.items():
         log(f"-- nvcc {name}:\n{out.strip()}")
     log(f"built {sorted(logs) or 'nothing (up to date)'} in {build_s:.2f} s")
+    # The kernels redesigned for Hopper (K4 and K2): what ptxas gave each
+    # entry function (dynamic shared memory is set at launch: K4 24 KB a
+    # block at M = 2, K2 86 KB in f64 and 43 KB in f32).
+    for src, keys in (("fused_masked_scan", ("mpa_",)),
+                      ("gp_batch_infer", ("gp_",))):
+        for fn, what in ptxas_summary(logs.get(src, "")).items():
+            if any(k in fn for k in keys):
+                log(f"ptxas {src}: {fn}: {what}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("allow_tf32: matmul", torch.backends.cuda.matmul.allow_tf32,
@@ -316,9 +363,17 @@ def check_k2(seed, dev):
             records[(q, name)] = report("gp_batch_infer", f"Q={q} C={c} "
                                         f"{name}", ms, plain, n_bytes, n_ops,
                                         name, err)
-            records[(q, name)]["device_ms"] = device_ms_per_call(
+            dev_ms = device_ms_per_call(
                 f"gp_batch_infer Q={q} {name}",
                 lambda: gp.gp_batch_infer(*argd, dtype=dt))
+            records[(q, name)]["device_ms"] = dev_ms
+            if dev_ms:
+                log(f"  gp_batch_infer Q={q} C={c} {name}: CUDA events "
+                    f"{ms:.6f} ms, device {dev_ms:.6f} ms; achieved "
+                    f"{n_bytes / dev_ms / 1e9:.4f} TB/s and "
+                    f"{n_ops / dev_ms / 1e9:.4f} TFLOP/s (device time); "
+                    f"device share of bound "
+                    f"{records[(q, name)]['bound_ms'] / dev_ms:.4f}")
     return records
 
 
@@ -359,8 +414,30 @@ def check_k4(rel, seed):
         records[q_n] = report("masked_partials", f"T={t_n} Q={q_n}", ms,
                               plain, n_bytes, n_ops, "float64", err,
                               library_ms=lib)
-        records[q_n]["device_ms"] = device_ms_per_call(
+        dev_ms = device_ms_per_call(
             f"masked_partials Q={q_n}", lambda: fms.masked_partials(mask, meas))
+        records[q_n]["device_ms"] = dev_ms
+        lib_dev = device_ms_per_call(f"mask.T @ payload Q={q_n}",
+                                     lambda: mask.T @ payload)
+        # The C entry point alone, on preallocated buffers: the CUDA-event
+        # time without the Python wrapper's host work.
+        out_e = torch.empty((q_n, p), dtype=torch.float64, device=rel.device)
+        scr_e = torch.empty(fms.masked_partials_plan(t_n, q_n, m).scratch,
+                            dtype=torch.float64, device=rel.device)
+        entry, stream = fms._entry("mpa_launch"), torch.cuda.current_stream()
+        entry_ms = time_ms(lambda: entry(
+            mask.data_ptr(), meas.data_ptr(), t_n, q_n, m, fms.FMS_CHUNK_T,
+            scr_e.data_ptr(), out_e.data_ptr(), stream.cuda_stream), inner=10)
+        assert torch.equal(out_e, got), "K4's entry point differs"
+        records[q_n]["entry_ms"] = entry_ms
+        log(f"  masked_partials Q={q_n}: entry point alone {entry_ms:.6f} ms "
+            f"(CUDA events), {entry_ms / lib:.4f} of mask.T @ payload")
+        log(f"  masked_partials Q={q_n}: kernel / mask.T @ payload = "
+            f"{ms / lib:.4f} in CUDA-event time (same run)"
+            + (f", {dev_ms / lib_dev:.4f} in device time; achieved "
+               f"{n_bytes / dev_ms / 1e9:.4f} TB/s, device share of bound "
+               f"{records[q_n]['bound_ms'] / dev_ms:.4f}"
+               if dev_ms and lib_dev else ""))
         del mask
     return records
 

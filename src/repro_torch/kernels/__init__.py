@@ -3,7 +3,8 @@
 Each kernel package follows ``ref.py`` (the plain PyTorch version of the
 kernel's function) / ``ops.py`` (the public wrapper). The CUDA sources live
 in ``repro_torch/csrc/``, one ``.cu`` file per kernel with a plain C entry
-point. On first use they are compiled with ``nvcc`` for ``sm_90a`` into
+point (``async_copy.cuh`` holds the ``cp.async`` helpers two of them
+share). On first use they are compiled with ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/`` at the repository root and loaded with ``ctypes``.
 
 Device rule, shared by every wrapper: a wrapper runs its plain version only
@@ -82,9 +83,14 @@ def library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header
+    (``csrc/*.cuh``)."""
     lib = library_path(name)
-    src = CSRC_DIR / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in (
+        CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")))
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:

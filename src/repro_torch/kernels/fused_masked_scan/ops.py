@@ -17,11 +17,13 @@ the kernel (``csrc/fused_masked_scan.cu``, entry point ``mpa_launch``; the
 plain version is ``ref.masked_partials_ref``). ``masked_partials_fused`` is
 its drop-in for the gathered-mask aggregation of the sharded placement
 (``repro_torch.aqp.executor.eval_partials_sharded``). On a 0/1 mask it
-gives K1's bits on the same block.
+gives K1's bits on the same block. ``masked_partials_plan`` is its launch
+plan (grid and scratch), which the CPU tests check.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -40,12 +42,15 @@ from repro_torch.kernels.fused_masked_scan.ref import (
 
 FMS_CHUNK_T = 256  # tuples one block folds; fixed, so sums depend on T only
 FMS_MAX_MEASURES = 8  # the kernel keeps 2·8+1 accumulators in registers
+MPA_TILE_Q = 128  # K4: snippets of one block (four warps, a lane a snippet)
+MPA_FOLD_WIDTH = 32  # K4's second pass: outputs of one block
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "fms_launch": [_P] * 7 + [_I] * 7 + [ctypes.c_double] + [_P] * 3,
     "mpa_launch": [_P] * 2 + [_I] * 4 + [_P] * 3,
+    "mpa_plan": [_I] * 4 + [_P],
 }
 
 
@@ -55,6 +60,48 @@ def _entry(name):
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+class MaskedPartialsPlan(NamedTuple):
+    """K4's launch as ``mpa_launch`` computes it. Block ``b`` folds chunk
+    ``b // n_q_tiles`` (``FMS_CHUNK_T`` tuples, K1's chunks) for snippet
+    tile ``b % n_q_tiles``; the second pass sums ``scratch`` over its first
+    axis in ascending order."""
+
+    t_n: int
+    q_n: int
+    m: int
+    n_chunks: int
+    n_q_tiles: int
+    blocks: int
+    fold_blocks: int
+    scratch: tuple
+
+    def block(self, b):
+        """(tuple range, snippet range) of partial block ``b``."""
+        c, qt = divmod(b, self.n_q_tiles)
+        t0, q0 = c * FMS_CHUNK_T, qt * MPA_TILE_Q
+        return (range(t0, min(self.t_n, t0 + FMS_CHUNK_T)),
+                range(q0, min(self.q_n, q0 + MPA_TILE_Q)))
+
+
+def masked_partials_plan(t_n, q_n, m):
+    """K4's grid, second pass and scratch shape for a (T, Q) mask and M
+    measures."""
+    n_chunks = -(-t_n // FMS_CHUNK_T)
+    n_q_tiles = -(-q_n // MPA_TILE_Q)
+    p = 2 * m + 1
+    return MaskedPartialsPlan(
+        t_n, q_n, m, n_chunks, n_q_tiles, n_chunks * n_q_tiles,
+        -(-q_n * p // MPA_FOLD_WIDTH), (max(n_chunks, 1), q_n, p))
+
+
+def masked_partials_plan_of_library(t_n, q_n, m):
+    """``mpa_plan`` of the built library (the card's build): (chunks,
+    snippet tile, q tiles, partial blocks, fold blocks)."""
+    out = (ctypes.c_int * 5)()
+    _entry("mpa_plan")(t_n, q_n, m, FMS_CHUNK_T, out)
+    return tuple(out)
 
 
 def _check_grid(what, t_n, q_n):
@@ -143,12 +190,14 @@ def masked_partials(mask, measures):
     check_tensor(mask, "mask", F64, (t_n, q_n), dev)
     check_tensor(measures, "measures", F64, (t_n, m), dev)
     _check_grid("masked_partials", t_n, q_n)
-    n_chunks = -(-t_n // FMS_CHUNK_T)
+    plan = masked_partials_plan(t_n, q_n, m)
+    if plan.blocks >= 2**31:
+        raise ValueError(f"masked_partials: T={t_n}, Q={q_n} exceed the "
+                         "kernel's grid")
     out = torch.empty((q_n, 2 * m + 1), dtype=F64, device=dev)
     if q_n == 0:
         return out
-    scratch = torch.empty((max(n_chunks, 1), q_n, 2 * m + 1), dtype=F64,
-                          device=dev)
+    scratch = torch.empty(plan.scratch, dtype=F64, device=dev)
     err = _entry("mpa_launch")(
         mask.data_ptr(), measures.data_ptr(), t_n, q_n, m, FMS_CHUNK_T,
         scratch.data_ptr(), out.data_ptr(),

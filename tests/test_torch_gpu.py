@@ -9,7 +9,16 @@ port is installed:
 Inputs are made from a seed with numpy. Tolerances:
   - K1 (``fused_masked_scan``) and K4 (``masked_partials``), f64: count
     exact, sums at rtol 1e-11, bitwise across runs; K4 on a block's
-    predicate mask is bitwise K1 on that block;
+    predicate mask is bitwise K1 on that block, at T in {1, 255, 257,
+    60013} x Q in {1, 33, 129, 4097} too, and from a mask that is not
+    16-byte aligned;
+  - K2 (``gp_batch_infer``): f64 at rtol 1e-10 of the plain version, f32
+    at rtol 5e-3 / atol 5e-5 of the f64 plain version (the reference's own
+    f32 budget), bitwise across runs, the exact-raw branch exact, padded
+    inputs (Σ⁻¹ = I, k = 0, α = 0) at the same tolerances as the unpadded
+    ones, at Q in {1, 8, 9, 128} x C in {1, 31, 33, 257, 2000};
+  - the built kernels' launch plans equal the wrappers' (``mpa_plan``,
+    ``gp_plan``);
   - K5 (``range_mask_agg``), f32: counts exact, sums at rtol 1e-5, bitwise
     across runs;
   - the scan placements launch the kernel of their route: K1 for a local
@@ -32,6 +41,9 @@ from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.fused_masked_scan import ops as pt_fms  # noqa: E402
 from repro_torch.kernels.fused_masked_scan.ref import (  # noqa: E402
     fused_masked_scan_ref, masked_partials_ref)
+from repro_torch.kernels.gp_batch_infer import ops as pt_gp  # noqa: E402
+from repro_torch.kernels.gp_batch_infer.ref import (  # noqa: E402
+    gp_batch_infer_ref)
 from repro_torch.kernels.range_mask_agg import ops as pt_rma  # noqa: E402
 from repro_torch.kernels.range_mask_agg.ref import (  # noqa: E402
     range_mask_agg_ref)
@@ -106,6 +118,154 @@ def test_cuda_masked_partials_matches_plain_version_and_k1(q_n):
     assert torch.equal(got[:, -1], want[:, -1])
     torch.testing.assert_close(got, want, rtol=1e-11, atol=0)
     assert torch.equal(got, k1)
+
+
+def _random_snippets(schema, q_n, rng):
+    """``q_n`` distinct range snippets over both numeric dims, on the
+    card."""
+    lo = rng.uniform(0.0, 7.0, (q_n, 2))
+    width = rng.uniform(0.5, 5.0, (q_n, 2))
+    ranges = [{0: (a, a + w), 1: (b, b + x)}
+              for (a, b), (w, x) in zip(lo, width)]
+    cats = [{0: (0, 1)} if i % 3 == 0 else {} for i in range(q_n)]
+    return pt_types.make_snippets(
+        schema, agg=[i % 2 for i in range(q_n)],
+        measure=[i % 2 for i in range(q_n)], num_ranges=ranges,
+        cat_sets=cats).to("cuda")
+
+
+@pytest.mark.parametrize("q_n", [1, 33, 129, 4097])
+@pytest.mark.parametrize("t", [1, 255, 257, 60013])
+def test_cuda_masked_partials_edge_shapes_are_k1_bitwise(t, q_n):
+    """K4 at the ragged shapes (partial chunks, partial snippet tiles, odd
+    Q and so 8-byte copies): bitwise K1 on the same block, bitwise on a
+    repeat, count exact and sums at rtol 1e-11 of the plain version."""
+    schema, num, cat, meas, _ = _block(t, seed=t + q_n)
+    snips = _random_snippets(schema, q_n, np.random.default_rng(q_n))
+    mask = pt_exec.predicate_mask(num, cat, snips)
+    before = launch_counts()["masked_partials"]
+    got = pt_fms.masked_partials(mask, meas)
+    again = pt_fms.masked_partials(mask, meas)
+    assert launch_counts()["masked_partials"] == before + 2
+    k1 = pt_fms.fused_masked_scan(num, cat, meas, snips.lo, snips.hi,
+                                  snips.cat)
+    want = masked_partials_ref(mask, meas)
+    assert torch.equal(got, again)
+    assert torch.equal(got, k1)
+    assert torch.equal(got[:, -1], want[:, -1])
+    torch.testing.assert_close(got, want, rtol=1e-11, atol=0)
+
+
+def test_cuda_masked_partials_from_an_unaligned_mask():
+    """A contiguous mask whose first element is 8 (not 16) bytes aligned
+    takes the 8-byte copies and gives the same bits."""
+    schema, num, cat, meas, _ = _block(3000, seed=3)
+    snips = _random_snippets(schema, 64, np.random.default_rng(3))
+    mask = pt_exec.predicate_mask(num, cat, snips)
+    flat = torch.cat([mask.new_zeros(1), mask.reshape(-1)])
+    shifted = flat[1:].view(mask.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    assert torch.equal(pt_fms.masked_partials(shifted, meas),
+                       pt_fms.masked_partials(mask, meas))
+
+
+@pytest.mark.parametrize("t,q_n", [(1, 1), (257, 33), (60013, 128),
+                                   (60013, 4097)])
+def test_k4_library_plan_equals_the_wrappers(t, q_n):
+    plan = pt_fms.masked_partials_plan(t, q_n, 2)
+    assert pt_fms.masked_partials_plan_of_library(t, q_n, 2) == (
+        plan.n_chunks, pt_fms.MPA_TILE_Q, plan.n_q_tiles, plan.blocks,
+        plan.fold_blocks)
+
+
+def _gp_args(q, c, seed, pad_q=0, pad_c=0):
+    """K2's inputs on the card (f64), padded as the engine pads: extra past
+    rows with Σ⁻¹ = I, k = 0 and α = 0, extra new rows with raw β² = 1."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(c, c))
+    sinv = a @ a.T / c + np.eye(c)
+    k = rng.normal(0, 0.1, (q, c))
+    alpha = rng.normal(0, 1, (c,))
+    kappa2 = np.einsum("qc,cd,qd->q", k, sinv, k) + rng.uniform(0.05, 0.5, q)
+    mu, rawt = rng.normal(0, 1, (q,)), rng.normal(0, 1, (q,))
+    rawb = rng.uniform(0.0, 0.3, (q,))
+    rawb[0] = 0.0  # the exact-raw branch
+    if pad_c:
+        sinv = np.block([[sinv, np.zeros((c, pad_c))],
+                         [np.zeros((pad_c, c)), np.eye(pad_c)]])
+        k = np.concatenate([k, np.zeros((q, pad_c))], 1)
+        alpha = np.concatenate([alpha, np.zeros(pad_c)])
+    if pad_q:
+        k = np.concatenate([k, rng.normal(0, 0.1, (pad_q, k.shape[1]))])
+        kappa2, mu, rawt = (np.concatenate([v, np.ones(pad_q)])
+                            for v in (kappa2, mu, rawt))
+        rawb = np.concatenate([rawb, np.ones(pad_q)])
+    return [torch.as_tensor(v, dtype=torch.float64, device="cuda")
+            for v in (k, sinv, alpha, kappa2, mu, rawt, rawb)]
+
+
+def _check_gp(got, want, dtype, q, rawt0):
+    rtol, atol = ((1e-10, 0.0) if dtype == torch.float64 else (5e-3, 5e-5))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g[:q].double(), w[:q], rtol=rtol,
+                                   atol=atol)
+    assert float(got[0][0]) == float(torch.tensor(rawt0, dtype=dtype))
+    assert float(got[1][0]) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("c", [1, 31, 33, 257, 2000])
+@pytest.mark.parametrize("q", [1, 8, 9, 128])
+def test_cuda_gp_batch_infer_matches_plain_version(q, c, dtype):
+    """K2 against the f64 plain version, bitwise on a repeat, the exact-raw
+    branch exact."""
+    args = _gp_args(q, c, seed=q * 7 + c)
+    want = gp_batch_infer_ref(*args)
+    before = launch_counts()["gp_batch_infer"]
+    got = pt_gp.gp_batch_infer(*args, dtype=dtype)
+    again = pt_gp.gp_batch_infer(*args, dtype=dtype)
+    assert launch_counts()["gp_batch_infer"] == before + 2
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+    _check_gp(got, want, dtype, q, float(args[5][0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("q,c,pad_q,pad_c", [(8, 257, 0, 255),
+                                             (9, 33, 7, 31),
+                                             (128, 2000, 0, 48)])
+def test_cuda_gp_batch_infer_padded_gives_the_unpadded_result(q, c, pad_q,
+                                                              pad_c, dtype):
+    """Padding as the engine pads (Σ⁻¹ = I, k = 0, α = 0 past rows; extra
+    new rows) leaves the real rows' answers within the tolerance."""
+    args = _gp_args(q, c, seed=c)
+    padded = _gp_args(q, c, seed=c, pad_q=pad_q, pad_c=pad_c)
+    want = gp_batch_infer_ref(*args)
+    got = pt_gp.gp_batch_infer(*padded, dtype=dtype)
+    _check_gp(got, want, dtype, q, float(args[5][0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("c", [257, 2000])
+def test_cuda_gp_batch_infer_rows_do_not_depend_on_q(c, dtype):
+    """A row's answer is bitwise the same whichever Q bucket (and so which
+    tiling) it rides in: the depth split is C's alone."""
+    args = _gp_args(128, c, seed=c + 1)
+    full = pt_gp.gp_batch_infer(*args, dtype=dtype)
+    for q in (8, 40):
+        part = [args[0][:q].contiguous(), args[1], args[2]] + [
+            a[:q].contiguous() for a in args[3:]]
+        for g, h in zip(pt_gp.gp_batch_infer(*part, dtype=dtype), full):
+            assert torch.equal(g, h[:q]), q
+
+
+@pytest.mark.parametrize("q,c", [(1, 1), (9, 33), (128, 2000), (300, 257)])
+def test_k2_library_plan_equals_the_wrappers(q, c):
+    plan = pt_gp.gp_plan(q, c)
+    lib = pt_gp.gp_plan_of_library(q, c)
+    assert lib[:6] == (plan.tile_q, plan.tile_c, plan.split,
+                       plan.n_row_tiles, plan.n_col_tiles, plan.n_splits)
+    assert lib[6] <= 227 * 1024  # fits one block's shared memory
 
 
 def test_cuda_range_mask_agg_matches_plain_version():

@@ -220,6 +220,42 @@ def test_gp_plain_version_matches_reference(q, c):
     assert float(got64[0][0]) == inputs[5][0] and float(got64[1][0]) == 0.0
 
 
+def _partition(ranges, n):
+    """The distinct ``ranges`` tile [0, n) end to end, none overlapping."""
+    ranges = sorted(set((r.start, r.stop) for r in ranges))
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    for (_, b), (c, _) in zip(ranges, ranges[1:]):
+        assert b == c
+    assert all(a < b for a, b in ranges)
+    return ranges
+
+
+@pytest.mark.parametrize("c", [1, 31, 33, 257, 2000])
+@pytest.mark.parametrize("q", [1, 8, 9, 128])
+def test_gp_launch_plan(q, c):
+    """K2's launch plan (the wrapper's, which the card's build reports as
+    its own in the gpu tests): every (row, column, depth) element of the
+    product lies in exactly one block, the scratch holds every partial, and
+    the split of C is the same for every Q."""
+    plan = pt_gp_ops.gp_plan(q, c)
+    blocks = [plan.block(ct, s, rt) for ct in range(plan.n_col_tiles)
+              for s in range(plan.n_splits) for rt in range(plan.n_row_tiles)]
+    rows = _partition([b[0] for b in blocks], q)
+    cols = _partition([b[1] for b in blocks], c)
+    depth = _partition([b[2] for b in blocks], c)
+    assert len(blocks) == plan.blocks == len(rows) * len(cols) * len(depth)
+    assert len(set((b[0].start, b[1].start, b[2].start)
+                   for b in blocks)) == len(blocks)
+    assert plan.part_g == (q, len(cols), len(depth))
+    assert plan.part_t == (q, len(cols))
+    assert plan.scratch_elems == 3 * q + int(np.prod(plan.part_g)) + int(
+        np.prod(plan.part_t))
+    for other in (1, 8, 9, 33, 128, 300):
+        assert pt_gp_ops.gp_plan(other, c).split == plan.split
+        assert pt_gp_ops.gp_plan(other, c).n_splits == plan.n_splits
+    assert plan.split % pt_gp_ops.GP_SPLIT_STEP == 0
+
+
 def test_gp_wrapper_cpu_path_counts_no_launch_and_rejects_dtype():
     inputs = [torch.as_tensor(v) for v in _gp_inputs(4, 16, 0)]
     before = launch_counts()["gp_batch_infer"]

@@ -271,6 +271,38 @@ def test_masked_partials_plain_version_matches_reference(t):
                               snips.cat))
 
 
+def _partition(ranges, n):
+    """The distinct ``ranges`` tile [0, n) end to end, none overlapping."""
+    ranges = sorted(set((r.start, r.stop) for r in ranges))
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    for (_, b), (c, _) in zip(ranges, ranges[1:]):
+        assert b == c
+    assert all(a < b for a, b in ranges)
+    return ranges
+
+
+@pytest.mark.parametrize("q_n", (1, 33, 129, 4097))
+@pytest.mark.parametrize("t", (1, 255, 257, 60013))
+def test_masked_partials_launch_plan(t, q_n):
+    """K4's launch plan (the wrapper's, which the card's build reports as
+    its own in the gpu tests): every (tuple, snippet) pair lies in exactly
+    one block, the chunks are K1's (exactly FMS_CHUNK_T wide, the last one
+    ragged), so K4's bits stay K1's, and the scratch and the second pass
+    hold every partial."""
+    m = 2
+    plan = pt_fms.masked_partials_plan(t, q_n, m)
+    blocks = [plan.block(b) for b in range(plan.blocks)]
+    chunks = _partition([tr for tr, _ in blocks], t)
+    tiles = _partition([qr for _, qr in blocks], q_n)
+    assert len(blocks) == len(chunks) * len(tiles)
+    assert len(set((tr.start, qr.start) for tr, qr in blocks)) == len(blocks)
+    assert all(a == c * pt_fms.FMS_CHUNK_T for c, (a, _) in enumerate(chunks))
+    assert all(b - a == pt_fms.FMS_CHUNK_T for a, b in chunks[:-1])
+    assert plan.n_chunks == len(chunks) == -(-t // pt_fms.FMS_CHUNK_T)
+    assert plan.scratch == (plan.n_chunks, q_n, 2 * m + 1)
+    assert plan.fold_blocks * pt_fms.MPA_FOLD_WIDTH >= q_n * (2 * m + 1)
+
+
 # ---------------------------------------------------------------------- K5
 @pytest.mark.parametrize("valid", (False, True))
 @pytest.mark.parametrize("cats", ((), (4,), (3, 2, 5)))

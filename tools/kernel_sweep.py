@@ -1,0 +1,226 @@
+#!/usr/bin/env python3
+"""Tiling variants of the masked-partials (K4) and GP-improve (K2) kernels.
+
+    python3 tools/kernel_sweep.py
+
+Needs one NVIDIA H100 and nvcc. Each variant is the checked-in source with
+some constants replaced, built into its own library under
+``build/kernel_sweep/`` (one nvcc per variant, all started together) and
+called through its C entry point on the same inputs: K4 at T = 60,013 and
+Q in {128, 4096} on a random 0/1 mask, K2 at C = 2000 and Q in {8, 128} in
+float64 and float32. For each it prints the CUDA-event time (median of 20
+samples of 10 back-to-back calls), the profiler's device time per kernel,
+and whether the output is bitwise the checked-in source's.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+from repro_torch.kernels import CSRC_DIR, NVCC_FLAGS, nvcc_path  # noqa: E402
+
+OUT = os.path.join(ROOT, "build", "kernel_sweep")
+P, I = ctypes.c_void_p, ctypes.c_int
+
+WIDE = r"using Wide = Tiling<4, 2, 2, 4, 16, 2>;"
+NARROW = r"using Narrow = Tiling<1, 2, 8, 1, 32, 2>;"
+K4_VARIANTS = {
+    "checked-in (4 warps, 16 rows, 4 stages)": {},
+    "1 warp a block": {r"MPA_WARPS = 4;": "MPA_WARPS = 1;"},
+    "8 rows, 8 stages": {r"MPA_ROWS = 16;": "MPA_ROWS = 8;",
+                         r"MPA_STAGES = 4;": "MPA_STAGES = 8;"},
+    "32 rows a stage": {r"MPA_ROWS = 16;": "MPA_ROWS = 32;"},
+    "6 stages": {r"MPA_STAGES = 4;": "MPA_STAGES = 6;"},
+    "no FMA loop (streaming only; wrong sums)": {
+        r"for \(int r = 0; r < nr; \+\+r\) \{":
+            "for (int r = 0; r < min(nr, 1); ++r) {"},
+}
+K2_VARIANTS = {
+    "checked-in": {},
+    "Wide 128x128, 16 warps": {WIDE: "using Wide = Tiling<4, 2, 4, 4, 16, 1>;"},
+    "Wide 128x128, 8 warps 32x64": {
+        WIDE: "using Wide = Tiling<4, 2, 2, 8, 16, 1>;"},
+    "Wide 32 deep a stage": {WIDE: "using Wide = Tiling<4, 2, 2, 4, 32, 2>;"},
+    "Narrow 16 deep a stage": {
+        NARROW: "using Narrow = Tiling<1, 2, 8, 1, 16, 2>;"},
+    "Narrow as Wide (2 of 8 warps multiply at Q = 8)": {
+        NARROW: "using Narrow = Tiling<4, 2, 2, 4, 16, 2>;"},
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def build(src, variants):
+    os.makedirs(OUT, exist_ok=True)
+    text = (CSRC_DIR / f"{src}.cu").read_text()
+    procs = []
+    for i, subs in enumerate(variants.values()):
+        body = text
+        for pat, rep in subs.items():
+            body, n = re.subn(pat, rep, body)
+            if n != 1:
+                raise RuntimeError(f"{src}: pattern {pat!r} matched {n} times")
+        cu = os.path.join(OUT, f"{src}_{i}.cu")
+        with open(cu, "w") as f:
+            f.write(body)
+        so = cu[:-3] + ".so"
+        procs.append((so, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = []
+    for so, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {so}:\n{out}")
+        libs.append(ctypes.CDLL(so))
+    return libs
+
+
+def event_ms(fn, reps=20, inner=10):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(inner):
+            fn()
+        e.record()
+        e.synchronize()
+        samples.append(s.elapsed_time(e) / inner)
+    return float(np.median(samples))
+
+
+def device_ms(fn, n=20):
+    """{kernel: device ms per call} from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+            k = k.replace("void ", "")
+            per[k] = per.get(k, 0.0) + e.time_range.end - e.time_range.start
+    return {k: v / n / 1e3 for k, v in per.items()}
+
+
+def report(what, name, call, out, ref):
+    dev = device_ms(call)
+    log(f"  {what} | {name}: events {event_ms(call):.6f} ms, device "
+        f"{sum(dev.values()):.6f} ms ("
+        + ", ".join(f"{k} {v:.6f}" for k, v in dev.items())
+        + f"); bitwise the checked-in source's: {torch.equal(out, ref)}")
+
+
+def sweep_k4():
+    libs = build("fused_masked_scan", K4_VARIANTS)
+    rng = np.random.default_rng(0)
+    t_n, m = 60_013, 2
+    meas = torch.as_tensor(rng.normal(1.0, 2.0, (t_n, m)), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for q_n in (128, 4096):
+        mask = (torch.rand(t_n, q_n, device="cuda", dtype=torch.float64)
+                < 0.3).double()
+        scratch = torch.empty((-(-t_n // 256), q_n, 2 * m + 1),
+                              dtype=torch.float64, device="cuda")
+        payload = torch.cat([meas, meas * meas, meas.new_ones((t_n, 1))], 1)
+        log(f"K4 T={t_n} Q={q_n}: mask.T @ payload events "
+            f"{event_ms(lambda: mask.T @ payload):.6f} ms, device "
+            f"{sum(device_ms(lambda: mask.T @ payload).values()):.6f} ms")
+        ref = None
+        for lib, name in zip(libs, K4_VARIANTS):
+            fn = lib.mpa_launch
+            fn.argtypes = [P, P, I, I, I, I, P, P, P]
+            out = torch.empty((q_n, 2 * m + 1), dtype=torch.float64,
+                              device="cuda")
+
+            def call(fn=fn, out=out):
+                err = fn(mask.data_ptr(), meas.data_ptr(), t_n, q_n, m, 256,
+                         scratch.data_ptr(), out.data_ptr(), stream)
+                if err:
+                    raise RuntimeError(f"mpa_launch returned {err}")
+
+            call()
+            torch.cuda.synchronize()
+            ref = out.clone() if ref is None else ref
+            report(f"K4 Q={q_n}", name, call, out, ref)
+        del mask
+
+
+def sweep_k2():
+    libs = build("gp_batch_infer", K2_VARIANTS)
+    c = 2000
+    stream = torch.cuda.current_stream().cuda_stream
+    for q in (8, 128):
+        rng = np.random.default_rng(q)
+        a = rng.normal(size=(c, c))
+        sinv = a @ a.T / c + np.eye(c)
+        k = rng.normal(0, 0.1, (q, c))
+        kappa2 = np.einsum("qc,cd,qd->q", k, sinv, k) + 0.2
+        vals = (k, sinv, rng.normal(size=c), kappa2, rng.normal(size=q),
+                rng.normal(size=q), rng.uniform(0.0, 0.3, q))
+        for dt in (torch.float64, torch.float32):
+            args = [torch.as_tensor(v, dtype=dt, device="cuda") for v in vals]
+            kk, ss = args[0], args[1]
+            log(f"K2 Q={q} C={c} {str(dt)[6:]}: K @ Sinv alone (cuBLAS, "
+                f"a yardstick; the port never calls it) events "
+                f"{event_ms(lambda: kk @ ss):.6f} ms, device "
+                f"{sum(device_ms(lambda: kk @ ss).values()):.6f} ms")
+            # room for every variant's partials: (Q, C/8, C/16) and (Q, C/8)
+            part_g = torch.empty(q * 250 * 125, dtype=dt, device="cuda")
+            part_t = torch.empty(q * 250, dtype=dt, device="cuda")
+            out = torch.empty((3, q), dtype=dt, device="cuda")
+            ref = None
+            for lib, name in zip(libs, K2_VARIANTS):
+                fn = getattr(lib, "gp_launch_f64" if dt == torch.float64
+                             else "gp_launch_f32")
+                fn.argtypes = [P] * 7 + [I] * 2 + [P] * 6
+
+                def call(fn=fn):
+                    err = fn(*[x.data_ptr() for x in args], q, c,
+                             part_g.data_ptr(), part_t.data_ptr(),
+                             out[0].data_ptr(), out[1].data_ptr(),
+                             out[2].data_ptr(), stream)
+                    if err:
+                        raise RuntimeError(f"gp_launch returned {err}")
+
+                call()
+                torch.cuda.synchronize()
+                ref = out.clone() if ref is None else ref
+                report(f"K2 Q={q} C={c} {str(dt)[6:]}", name, call, out, ref)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("kernel_sweep: needs a CUDA device", file=sys.stderr)
+        return 2
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    t0 = time.perf_counter()
+    sweep_k4()
+    sweep_k2()
+    log(f"sweep done in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
