@@ -8,13 +8,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      under src/repro_torch/csrc (timed), TF32 off;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, with CUDA-event timings and bounds (the
-     SE-covariance forward and its lengthscale gradient included);
+     SE-covariance kernels included: the premise that their antiderivative
+     is even bit for bit, the general and Gram forwards, the forward with
+     derivatives and the lengthscale gradient reduced from them, and a
+     bound from the FP64 instructions ``cuobjdump -sass`` finds in one
+     antiderivative);
   3. the main path at a size users run: TPC-H SF1 lineitem cardinality
      (6,001,215 rows), capacity 2000, a 2000-query warm-up through
      ``execute_many`` and 200 queries served one by one through ``execute``;
   6. learning and checkpoints on phase 3's engine: ``refit()`` with its
      defaults (the NLL must fall on every synopsis; every Adam step runs the
-     SE-covariance forward and gradient kernels), ``save_synopses`` /
+     SE-covariance Gram forward with derivatives and their reduction), ``save_synopses`` /
      ``load_synopses`` into a fresh engine (bitwise state, then 20 queries
      answered bitwise alike), 200 fresh queries after the refit, and a
      drifted data append on every synopsis;
@@ -128,17 +132,20 @@ def _short(name):
 
 def device_ms_per_call(label, fn, n=10):
     """Device time per call of ``fn`` from the profiler, with its split by
-    kernel; None when the profiler saw no device activity."""
-    wall, busy, per = device_profile(fn, n)
+    kernel: each kernel's mean time over the launches the profiler recorded,
+    times its launches a call (the profiler may miss a launch of the n);
+    None when the profiler saw no device activity."""
+    _, _, per = device_profile(fn, n)
     if not per:
         log(f"  {label}: the profiler recorded no device activity "
             "(device time not measured)")
         return None
-    log(f"  {label}: device {1e3 * busy / n:.6f} ms per call (" + ", ".join(
-        f"{_short(k)} {1e3 * v[1] / n:.6f} ms x{v[0] / n:g}"
-        for k, v in sorted(per.items(), key=lambda kv: -kv[1][1]))
-        + f"); host wall {1e3 * wall / n:.6f} ms per call under the profiler")
-    return 1e3 * busy / n
+    each = {k: 1e3 * t / c * max(1, round(c / n)) for k, (c, t) in per.items()}
+    log(f"  {label}: device {sum(each.values()):.6f} ms per call ("
+        + ", ".join(f"{_short(k)} {each[k]:.6f} ms, {per[k][0]} of {n} calls "
+                    "recorded" for k in sorted(each, key=lambda k: -each[k]))
+        + ")")
+    return sum(each.values())
 
 
 def ptxas_summary(out):
@@ -216,11 +223,14 @@ def phase_build():
     for name, out in logs.items():
         log(f"-- nvcc {name}:\n{out.strip()}")
     log(f"built {sorted(logs) or 'nothing (up to date)'} in {build_s:.2f} s")
-    # The kernels redesigned for Hopper (K4 and K2): what ptxas gave each
-    # entry function (dynamic shared memory is set at launch: K4 24 KB a
-    # block at M = 2, K2 86 KB in f64 and 43 KB in f32).
+    # The kernels redesigned for Hopper (K4, K2, and K3 at the main path's
+    # l = 3 in f64): what ptxas gave each entry function (dynamic shared
+    # memory is set at launch: K4 24 KB a block at M = 2, K2 86 KB in f64
+    # and 43 KB in f32, the K3 Gram kernel's transpose 8.4 KB, 33.8 KB with
+    # derivatives at l = 3 in f64).
     for src, keys in (("fused_masked_scan", ("mpa_",)),
-                      ("gp_batch_infer", ("gp_",))):
+                      ("gp_batch_infer", ("gp_",)),
+                      ("se_covariance", ("<double, 3",))):
         for fn, what in ptxas_summary(logs.get(src, "")).items():
             if any(k in fn for k in keys):
                 log(f"ptxas {src}: {fn}: {what}")
@@ -496,53 +506,291 @@ def _se_inputs(rng, n, l, equality=False):
 
 
 def _k3_ops(n_i, n_j, l):
-    """Operations of K3's forward and gradient, from the shapes. Every
-    add, subtract, multiply, divide, compare, exp and erf counts as one
-    operation (libdevice's exp and erf are tens of instructions each, so
-    this is a lower bound on the card's work). Forward, per element and
-    dimension: 4 antiderivatives of 9 (difference, u/z, square, exp,
-    ((-z/2) z) e, ((sqrt(pi)/2) z) u, erf, its product, subtract), 3 for
-    the inclusion-exclusion, clamp and product: 41; per element 3 more for
-    the sigma2 and norm scale. Gradient, per element and dimension: 4
-    antiderivatives of 13 (the 9 and dF/dz's 4), 6 for the two
-    inclusion-exclusions, clamp and its mask: 60; per element 3 for the
-    scale, l^2 for the products over the other dims, l for the block
-    reduction."""
-    fwd = n_i * n_j * (41 * l + 3)
-    grad = n_i * n_j * (60 * l + 3 + l * l + l)
-    return fwd, grad
+    """Operations of K3's calls, from the shapes. Every add, subtract,
+    multiply, divide, compare, exp and erf counts as one operation
+    (libdevice's exp and erf are tens of instructions each, so this is a
+    lower bound on the card's work). An antiderivative is 9 (difference,
+    u/z, square, exp, ((-z/2) z) e, ((sqrt(pi)/2) z) u, erf, its product,
+    subtract), 13 with dF/dz. An entry is 5 a dimension (3 for the
+    inclusion-exclusion, clamp, product) and 3 for the sigma2 and norm
+    scale; with derivatives 9 a dimension (both inclusion-exclusions,
+    clamp, its mask, product), 4 for the scales and l (l + 1) for the
+    products over the other dims. The general kernel evaluates 4 l
+    antiderivatives an entry; the Gram kernel (n_i = n_j = n) 4 l a pair
+    of the n (n + 1) / 2 this run's data needs. The reduction: a multiply
+    and an add for each of the l n_i n_j derivatives."""
+    pairs = n_i * n_j
+    gram_pairs = n_i * (n_i + 1) // 2
+    return {"general": pairs * (4 * 9 * l + 5 * l + 3),
+            "gram": gram_pairs * 4 * 9 * l + pairs * (5 * l + 3),
+            "derivs": (gram_pairs * 4 * 13 * l
+                       + pairs * (9 * l + 4 + l * (l + 1))),
+            "reduce": 2 * l * pairs}
+
+
+# The H100 SXM data sheet's non-tensor FP64 rate, 34 TFLOP/s, is 17.0e12
+# DFMA lanes a second: one FP64-pipe instruction a lane each.
+FP64_PIPE_LANES_PER_S = 17.0e12
+SASS_FP64_OPS = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX", "DSET")
+
+
+def sass_fp64_paths(lines):
+    """FP64-pipe instructions (``SASS_FP64_OPS``) in one kernel's
+    ``cuobjdump -sass`` listing: (static count, the fewest and the most on
+    a path from the entry that stores to global memory, calls into
+    subroutines included, {opcode: static count}). The path counts are None
+    where the control flow has a cycle or a jump this parser does not
+    follow."""
+    import re
+
+    ins, labels = [], {}  # labels: a label or an address -> instruction
+    for line in lines:
+        m = re.match(r"\s*([.\w$]+):\s*$", line)
+        if m:
+            labels[m.group(1)] = len(ins)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if m:
+            labels[int(m.group(1), 16)] = len(ins)
+            tgt = re.search(r"`\(([^)]+)\)|\b0x([0-9a-f]+)\s*$", m.group(4))
+            if tgt:
+                tgt = tgt.group(1) or int(tgt.group(2), 16)
+            ins.append((m.group(3).split(".")[0], bool(m.group(2)), tgt))
+    ops = {}
+    for op, _, _ in ins:
+        if op in SASS_FP64_OPS:
+            ops[op] = ops.get(op, 0) + 1
+    static = sum(ops.values())
+    inf = float("inf")
+
+    class Unfollowed(Exception):
+        pass
+
+    memo, active = {}, set()
+
+    def best(i, state):
+        """(fewest, most) FP64 instructions from instruction i to the end
+        of a path: state 0 an EXIT with a store still to come, 1 an EXIT,
+        2 a RET (a subroutine's end); (inf, -inf) where none is reached."""
+        if i >= len(ins):
+            return inf, -inf
+        key = (i, state)
+        if key in memo:
+            return memo[key]
+        if key in active:
+            raise Unfollowed
+        active.add(key)
+        op, pred, tgt = ins[i]
+        nxt = 1 if state == 0 and op == "STG" else state
+        succ, done, extra = [i + 1], False, (0, 0)
+        if op in ("BRX", "JMX", "JMP") or (op == "CALL" and pred):
+            raise Unfollowed
+        if op in ("BRA", "CALL"):
+            t = labels.get(tgt)
+            if t is None:
+                raise Unfollowed
+            if op == "CALL":
+                extra = best(t, 2)
+                if extra[0] == inf:
+                    raise Unfollowed
+            elif t == i:  # a closing self-loop: a dead end
+                succ = []
+            else:
+                succ = [t, i + 1] if pred else [t]
+        elif op in ("EXIT", "RET"):
+            done = nxt == (1 if op == "EXIT" else 2)
+            succ = [i + 1] if pred else []
+        found = [best(s, nxt) for s in succ] + ([(0, 0)] if done else [])
+        lo = min((f[0] for f in found), default=inf)
+        hi = max((f[1] for f in found), default=-inf)
+        cost = int(op in SASS_FP64_OPS)
+        res = ((cost + extra[0] + lo, cost + extra[1] + hi) if lo < inf
+               else (inf, -inf))
+        active.discard(key)
+        memo[key] = res
+        return res
+
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(limit, 20 * len(ins) + 1000))
+    try:
+        fewest, most = best(0, 0)
+    except Unfollowed:
+        return static, None, None, ops
+    finally:
+        sys.setrecursionlimit(limit)
+    if fewest == inf:
+        return static, None, None, ops
+    return static, fewest, most, ops
+
+
+def k3_sass_counts():
+    """FP64-pipe instructions of one antiderivative in the built K3
+    library, (F alone, F with dF/dz): each the fewest on a storing path of
+    the probe kernel (``se_cov_probe<double, ...>``, the kernels' own
+    antiderivative), less the probe's 3 multiplies that form (-z/2) z and
+    (sqrt(pi)/2) z (the kernels stage those once a block). (None, None)
+    where cuobjdump or the parse fails: the SASS-count bound is then not
+    measured."""
+    import re
+
+    from repro_torch import kernels
+
+    try:
+        tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+        text = subprocess.run(
+            [tool, "-sass", str(kernels.library_path("se_covariance"))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        log(f"  cuobjdump -sass failed ({e}): SASS-count bound not measured")
+        return None, None
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    counts = []
+    for flag, what in (("0", "F"), ("1", "F and dF/dz")):
+        name = next((k for k in funcs if f"se_cov_probeIdLb{flag}E" in k),
+                    None)
+        if name is None:
+            log(f"  SASS: no probe kernel for {what} in the library")
+            counts.append(None)
+            continue
+        static, fewest, most, ops = sass_fp64_paths(funcs[name])
+        if fewest is None:
+            log("\n".join(funcs[name]))
+        log(f"  SASS of one antiderivative ({what}, probe kernel): FP64-pipe "
+            f"instructions static {static}, on a storing path fewest "
+            f"{fewest} and most {most} (probe's 3 for the factors "
+            f"included); by opcode {ops}")
+        counts.append(None if fewest is None else fewest - 3)
+    return tuple(counts)
+
+
+def _k3_premise(dev):
+    """The Gram kernel's premise on the card: the kernels' own F and dF/dz
+    are even bit for bit, and erf odd, over 0, subnormals, erf's branch
+    points and |u/z| > 6, in float64 and float32."""
+    import torch
+    from repro_torch.kernels.se_covariance import ops as se
+
+    n_vals = 0
+    for dt, np_dt in ((torch.float64, np.float64), (torch.float32,
+                                                    np.float32)):
+        info = np.finfo(np_dt)
+        r = np.concatenate([
+            [0.0, info.smallest_subnormal, 4 * info.smallest_subnormal,
+             info.tiny, 0.84375, 1.0, 1.25, 2.857142857142857, 5.9, 6.0, 6.5,
+             27.0, 1e10],
+            np.logspace(np.log10(float(info.tiny)), 2, 20000),
+            np.linspace(0.0, 7.0, 700001)]).astype(np_dt)
+        r = np.concatenate([r, np.nextafter(r, np.inf).astype(np_dt),
+                            np.nextafter(r, -np.inf).astype(np_dt)])
+        for z in (0.3, 0.77, 1.5):
+            u = torch.as_tensor(np.abs(r) * np_dt(z), device=dev)
+            f, df = se.se_cov_probe(u, z, with_derivative=True)
+            fm, dfm = se.se_cov_probe(-u, z, with_derivative=True)
+            rr = u / torch.tensor(z, dtype=dt, device=dev)
+            odd = torch.equal(torch.special.erf(-rr), -torch.special.erf(rr))
+            torch.cuda.synchronize()
+            bad = (f != fm) | (df != dfm)
+            assert not bool(bad.any()), (
+                "K3 premise fails: F(-u) != F(u) at u = "
+                f"{u[bad][:8].tolist()} ({dt}, z = {z})")
+            assert odd, f"erf is not bitwise odd on the card ({dt})"
+            n_vals += u.numel()
+    log(f"  premise: the kernels' F(-u) == F(u) and dF(-u) == dF(u) bitwise, "
+        f"and erf(-r) == -erf(r), at {n_vals} values (f64 and f32; 0, "
+        "subnormals, erf's branch points, |u/z| up to 1e10)")
+
+
+def _k3_seq(args, l):
+    """The plain version's clamped per-dimension integrals multiplied in
+    the kernels' order ((g0 g1) g2) and scaled as they scale."""
+    import torch
+    from repro_torch.kernels.se_covariance.ref import se_double_integral
+
+    lo_i, hi_i, lo_j, hi_j, ls, sigma2, norm_i, norm_j = args
+    g = torch.clamp(se_double_integral(lo_i[:, None, :], hi_i[:, None, :],
+                                       lo_j[None], hi_j[None], ls), min=0.0)
+    seq = g[..., 0]
+    for k in range(1, l):
+        seq = seq * g[..., k]
+    return sigma2 * seq / (norm_i[:, None] * norm_j[None, :])
+
+
+def _rel(got, want):
+    return float(((got - want).abs() / want.abs().clamp(min=1e-300)).max())
 
 
 def check_k3(seed, dev):
     import torch
     from repro_torch.kernels.se_covariance import ops as se
-    from repro_torch.kernels.se_covariance.ref import (se_cov_grad_ref,
-                                                       se_cov_matrix_ref,
-                                                       se_double_integral)
+    from repro_torch.kernels.se_covariance.ref import (se_cov_derivs_ref,
+                                                       se_cov_grad_ref,
+                                                       se_cov_matrix_ref)
 
-    log("-- K3 se_cov_matrix (forward): against the plain version on the "
-        "card, f64 rtol 1e-12 on ranges wider than 0.05 and rtol 1e-3 on "
+    log("-- K3 premise: the kernels' antiderivative F(u; z) is even bit for "
+        "bit (the Gram kernel's (b, a) entry reuses (a, b)'s values)")
+    log("-- K3 se_cov_matrix (general forward): against the plain version on "
+        "the card, f64 rtol 1e-12 on ranges wider than 0.05 and rtol 1e-3 on "
         "equality ranges, f32 rtol 2e-5 atol 1e-7 (the reference's f32 "
         "budget); repeat bitwise; f64 bitwise equal to the plain version's "
         "per-dimension integrals multiplied in the kernel's order")
-    log("-- K3 se_cov_grad (gradient wrt ls): against torch.autograd.grad of "
-        "the plain version on the card, f64 rtol 1e-9 (another summation "
-        "order over n_i*n_j terms); repeat bitwise")
-    l = 3
+    log("-- K3 se_cov_gram (Gram forward, the ranges passed once): bitwise "
+        "the general kernel on the same ranges (f64 and f32), the f64 "
+        "per-dimension contract, repeat bitwise")
+    log("-- K3 se_cov_derivs (forward with derivatives): K bitwise the "
+        "forward without; D within rtol 1e-12 of the plain "
+        "se_cov_derivs_ref; Gram D bitwise general D")
+    log("-- K3 se_cov_grad (reduction of the saved derivatives, the "
+        "backward): against torch.autograd.grad of the plain version on the "
+        "card, f64 rtol 1e-9 (another summation order over n_i*n_j terms); "
+        "repeat bitwise; the autograd path bitwise se_cov_grad; the Gram "
+        "route's bitwise the general route's")
+    _k3_premise(dev)
+    per_anti = k3_sass_counts()
+    l, sigma2, n = 3, 1.7, SYNOPSIS_C
     records = {}
     rng = np.random.default_rng(seed + 13)
     ls = torch.as_tensor(rng.uniform(0.3, 1.5, l), device=dev)
-    sigma2 = 1.7
-    for n_i, n_j in ((128, SYNOPSIS_C), (SYNOPSIS_C, SYNOPSIS_C)):
+
+    def sass_ms(antiderivs, derivs=False):
+        c = per_anti[1 if derivs else 0]
+        return None if c is None else c * antiderivs / FP64_PIPE_LANES_PER_S * 1e3
+
+    def record(key, name, label, fn, plain_fn, n_bytes, n_ops, dtype, err,
+               sass):
+        ms = time_ms(fn, inner=10)
+        plain = time_ms(plain_fn, reps=10)
+        rec = report(name, label, ms, plain, n_bytes, n_ops, dtype, err)
+        rec["device_ms"] = device_ms_per_call(f"{name} {label}", fn)
+        rec["sass_bound_ms"] = sass
+        if sass is not None:
+            dev_share = (f", {sass / rec['device_ms']:.4f} of the device time"
+                         if rec["device_ms"] else "")
+            log(f"  {name} {label}: SASS-count bound {sass:.6f} ms (fewest "
+                "FP64-pipe instructions an antiderivative x antiderivatives "
+                f"/ 17.0e12 a s): {sass / ms:.4f} of the CUDA-event time"
+                + dev_share)
+        records[key] = rec
+
+    # 1. The general kernel at improve's shape and at 2000 x 2000.
+    sides = {}
+    for n_i in (128, n):
         lo_i, hi_i = _se_inputs(rng, n_i, l)
-        lo_j, hi_j = _se_inputs(rng, n_j, l)
-        norm_i, norm_j = rng.uniform(0.5, 2.0, n_i), rng.uniform(0.5, 2.0, n_j)
+        lo_j, hi_j = _se_inputs(rng, n, l)
+        norm_i, norm_j = rng.uniform(0.5, 2.0, n_i), rng.uniform(0.5, 2.0, n)
         f64 = [torch.as_tensor(v, device=dev) for v in
                (lo_i, hi_i, lo_j, hi_j)]
         ni_t = torch.as_tensor(norm_i, device=dev)
         nj_t = torch.as_tensor(norm_j, device=dev)
-        want64 = se_cov_matrix_ref(*f64, ls, sigma2, ni_t, nj_t)
-        fwd_ops, grad_ops = _k3_ops(n_i, n_j, l)
+        sides[n_i] = (*f64, ls, sigma2, ni_t, nj_t)
+        want64 = se_cov_matrix_ref(*sides[n_i])
         for dt, rtol, atol in ((torch.float64, 1e-12, 0.0),
                                (torch.float32, 2e-5, 1e-7)):
             args = [t.to(dt) for t in (*f64, ls)] + [sigma2] + [
@@ -554,43 +802,29 @@ def check_k3(seed, dev):
             assert torch.equal(got, again), "K3 is not bitwise across runs"
             assert bool(torch.isfinite(got).all())
             assert torch.allclose(got, want, rtol=rtol, atol=atol), (
-                dt, float(((got - want).abs() / want.abs()).max()))
+                dt, _rel(got, want))
             err = float((got - want).abs().max())
             name = str(dt).replace("torch.", "")
-            # The plain version's clamped per-dimension integrals, multiplied
-            # in the kernel's order ((g0 g1) g2) and scaled as it scales.
-            g = torch.clamp(se_double_integral(
-                args[0][:, None, :], args[1][:, None, :], args[2][None],
-                args[3][None], args[4]), min=0.0)
-            seq = g[..., 0]
-            for k in range(1, l):
-                seq = seq * g[..., k]
-            seq = sigma2 * seq / (args[6][:, None] * args[7][None, :])
-            same_seq = bool(torch.equal(got, seq))
+            same_seq = bool(torch.equal(got, _k3_seq(args, l)))
             if dt == torch.float64:
                 assert same_seq, "K3 f64 differs from the plain version's " \
                     "per-dimension integrals multiplied in its order"
-            log(f"  se_cov_matrix {n_i}x{n_j} {name}: bitwise equal to the "
+            log(f"  se_cov_matrix {n_i}x{n} {name}: bitwise equal to the "
                 f"plain version on the card: {bool(torch.equal(got, want))} "
                 f"({int((got != want).sum())} of {got.numel()} differ); "
                 "to its per-dimension integrals multiplied in the kernel's "
                 f"order: {same_seq}; largest relative difference "
-                f"{float(((got - want).abs() / want.abs().clamp(min=1e-300)).max()):.3e}; "
-                f"against the f64 plain version "
-                f"{float(((got.double() - want64).abs() / want64.abs()).max()):.3e}")
-            del g, seq
-            ms = time_ms(lambda: se.se_cov_matrix(*args), inner=10)
-            plain = time_ms(lambda: se_cov_matrix_ref(*args), reps=10)
+                f"{_rel(got, want):.3e}; against the f64 plain version "
+                f"{_rel(got.double(), want64):.3e}")
             size = 8 if dt == torch.float64 else 4
-            n_bytes = size * (2 * (n_i + n_j) * l + l + n_i + n_j + 1
-                              + n_i * n_j)
-            records[(n_i, name)] = report(
-                "se_cov_matrix", f"{n_i}x{n_j} l={l} {name}", ms, plain,
-                n_bytes, fwd_ops,
-                "float64_simt" if dt == torch.float64 else "float32", err)
-            records[(n_i, name)]["device_ms"] = device_ms_per_call(
-                f"se_cov_matrix {n_i}x{n_j} {name}",
-                lambda: se.se_cov_matrix(*args))
+            record(("general", n_i, name), "se_cov_matrix",
+                   f"{n_i}x{n} l={l} {name}",
+                   lambda: se.se_cov_matrix(*args),
+                   lambda: se_cov_matrix_ref(*args),
+                   size * (2 * (n_i + n) * l + l + n_i + n + 1 + n_i * n),
+                   _k3_ops(n_i, n, l)["general"],
+                   "float64_simt" if dt == torch.float64 else "float32", err,
+                   sass_ms(4 * l * n_i * n) if dt == torch.float64 else None)
         # Equality ranges: 1e-6 wide dim 0, ~12 digits cancel (f64 only).
         eq_i = [torch.as_tensor(v, device=dev)
                 for v in _se_inputs(rng, n_i, l, equality=True)]
@@ -598,40 +832,116 @@ def check_k3(seed, dev):
         got, want = se.se_cov_matrix(*eq), se_cov_matrix_ref(*eq)
         torch.cuda.synchronize()
         assert torch.allclose(got, want, rtol=1e-3, atol=0.0)
-        log(f"  equality ranges {n_i}x{n_j} f64: largest relative "
-            f"difference {float(((got - want).abs() / want.abs().clamp(min=1e-300)).max()):.3e}"
-            f", bitwise {bool(torch.equal(got, want))}")
-        if n_i != n_j:
-            continue
-        # The gradient at the rebuild shape.
-        g_out = torch.as_tensor(rng.normal(size=(n_i, n_j)), device=dev)
-        gargs = (*f64, ls, sigma2, ni_t, nj_t, g_out)
-        got = se.se_cov_grad(*gargs)
-        again = se.se_cov_grad(*gargs)
-        want = se_cov_grad_ref(*gargs)
-        # And through autograd: the Function's backward is the same kernel.
-        z = ls.clone().requires_grad_(True)
-        (via,) = torch.autograd.grad(
-            se.se_cov_matrix(*f64, z, sigma2, ni_t, nj_t), z, g_out)
+        log(f"  equality ranges {n_i}x{n} f64: largest relative difference "
+            f"{_rel(got, want):.3e}, bitwise {bool(torch.equal(got, want))}")
+
+    # 2. The Gram kernel at 2000 x 2000: the general case's i side, once.
+    lo, hi, _, _, _, _, norm, _ = sides[n]
+    ops = _k3_ops(n, n, l)
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).replace("torch.", "")
+        g_lo, g_hi, g_ls, g_norm = (t.to(dt) for t in (lo, hi, ls, norm))
+        gargs = (g_lo, g_hi, g_ls, sigma2, g_norm)
+        full = (g_lo, g_hi, g_lo, g_hi, g_ls, sigma2, g_norm, g_norm)
+        got = se.se_cov_gram(*gargs)
+        again = se.se_cov_gram(*gargs)
+        general = se.se_cov_matrix(*full)
+        want = se_cov_matrix_ref(*full)
         torch.cuda.synchronize()
-        assert torch.equal(got, again), "K3 gradient is not bitwise across runs"
-        assert torch.equal(got, via), "autograd did not run the gradient kernel"
-        assert torch.allclose(got, want, rtol=1e-9, atol=0.0), (got, want)
-        err = float((got - want).abs().max())
-        log(f"  se_cov_grad {n_i}x{n_j} f64: {got.tolist()} against "
-            f"{want.tolist()}, largest relative difference "
-            f"{float(((got - want).abs() / want.abs()).max()):.3e}")
-        ms = time_ms(lambda: se.se_cov_grad(*gargs), inner=10)
-        plain = time_ms(lambda: se_cov_grad_ref(*gargs), reps=10)
-        n_bytes = 8 * (2 * (n_i + n_j) * l + l + n_i + n_j + 1 + n_i * n_j
-                       + l)
-        records["grad"] = report("se_cov_grad", f"{n_i}x{n_j} l={l} float64",
-                                 ms, plain, n_bytes, grad_ops, "float64_simt",
-                                 err)
-        records["grad"]["device_ms"] = device_ms_per_call(
-            f"se_cov_grad {n_i}x{n_j} float64", lambda: se.se_cov_grad(*gargs))
-    log("  library_ms is null for both: no single PyTorch call computes the "
-        "SE double-integral product or its lengthscale gradient")
+        assert torch.equal(got, again), "K3 Gram is not bitwise across runs"
+        assert torch.equal(got, general), (
+            f"K3 Gram differs from the general kernel ({name}) in "
+            f"{int((got != general).sum())} entries")
+        same_seq = bool(torch.equal(got, _k3_seq(full, l)))
+        if dt == torch.float64:
+            assert same_seq, "K3 Gram f64 differs from the plain version's " \
+                "per-dimension integrals multiplied in its order"
+        log(f"  se_cov_gram {n}x{n} {name}: bitwise the general kernel on the "
+            f"same ranges: True; repeat bitwise: True; to the plain "
+            f"version's per-dimension integrals in the kernel's order: "
+            f"{same_seq}; largest relative difference to the plain version "
+            f"{_rel(got, want):.3e}")
+        size = 8 if dt == torch.float64 else 4
+        record(("gram", name), "se_cov_gram", f"{n}x{n} l={l} {name}",
+               lambda: se.se_cov_gram(*gargs),
+               lambda: se_cov_matrix_ref(*full),
+               size * (2 * n * l + l + n + 1 + n * n), ops["gram"],
+               "float64_simt" if dt == torch.float64 else "float32",
+               float((got - want).abs().max()),
+               sass_ms(4 * l * n * (n + 1) // 2)
+               if dt == torch.float64 else None)
+        del got, again, general, want
+
+    # 3. The derivatives (f64): the Gram route against the general route
+    # and the plain version.
+    full = (lo, hi, lo, hi, ls, sigma2, norm, norm)
+    k_g, d_g = se.se_cov_gram_derivs(lo, hi, ls, sigma2, norm)
+    k_gen, d_gen = se.se_cov_derivs(*full)
+    want_k, want_d = se_cov_derivs_ref(*full)
+    torch.cuda.synchronize()
+    assert torch.equal(k_g, se.se_cov_gram(lo, hi, ls, sigma2, norm)), (
+        "writing the derivatives changed the Gram forward's bits")
+    assert torch.equal(k_g, k_gen) and torch.equal(d_g, d_gen), (
+        "K3 Gram derivatives differ from the general kernel's")
+    assert torch.allclose(d_g, want_d, rtol=1e-12, atol=0.0), _rel(d_g,
+                                                                   want_d)
+    err_d = float((d_g - want_d).abs().max())
+    log(f"  se_cov_gram_derivs {n}x{n} f64: K and D bitwise the general "
+        f"kernel's; D against se_cov_derivs_ref: bitwise "
+        f"{bool(torch.equal(d_g, want_d))} ({int((d_g != want_d).sum())} of "
+        f"{d_g.numel()} differ), largest relative difference "
+        f"{_rel(d_g, want_d):.3e}")
+    del k_g, k_gen, d_gen, want_k
+    record("derivs", "se_cov_derivs", f"{n}x{n} l={l} float64 Gram",
+           lambda: se.se_cov_gram_derivs(lo, hi, ls, sigma2, norm),
+           lambda: se_cov_derivs_ref(*full),
+           8 * (2 * n * l + l + n + 1 + (1 + l) * n * n), ops["derivs"],
+           "float64_simt", err_d, sass_ms(4 * l * n * (n + 1) // 2, True))
+
+    # 4. The gradient: the general route (two sides), then the Gram route.
+    g_out = torch.as_tensor(rng.normal(size=(n, n)), device=dev)
+    two = sides[n]
+    got = se.se_cov_grad(*two, g_out)
+    again = se.se_cov_grad(*two, g_out)
+    want = se_cov_grad_ref(*two, g_out)
+    z = ls.clone().requires_grad_(True)
+    (via,) = torch.autograd.grad(
+        se.se_cov_matrix(*two[:4], z, *two[5:]), z, g_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "K3 gradient is not bitwise across runs"
+    assert torch.equal(got, via), "autograd did not run the reduction"
+    assert torch.allclose(got, want, rtol=1e-9, atol=0.0), (got, want)
+    log(f"  se_cov_grad {n}x{n} f64 (general route): {got.tolist()} against "
+        f"{want.tolist()}, largest relative difference {_rel(got, want):.3e}"
+        "; autograd path bitwise; repeat bitwise")
+    k_mat = se.se_cov_gram(lo, hi, z, sigma2, norm)
+    (via_g,) = torch.autograd.grad(k_mat, z, g_out, retain_graph=True)
+    (again_g,) = torch.autograd.grad(k_mat, z, g_out, retain_graph=True)
+    general = se.se_cov_grad(*full, g_out)
+    want_g = se_cov_grad_ref(*full, g_out)
+    torch.cuda.synchronize()
+    assert torch.equal(via_g, again_g), "K3 Gram gradient is not bitwise"
+    assert torch.equal(via_g, general), (
+        "K3 Gram gradient differs from the general route's")
+    assert torch.allclose(via_g, want_g, rtol=1e-9, atol=0.0), (via_g, want_g)
+    log(f"  se_cov_grad {n}x{n} f64 (Gram route, through autograd): "
+        f"{via_g.tolist()} against {want_g.tolist()}, largest relative "
+        f"difference {_rel(via_g, want_g):.3e}; bitwise the general route "
+        "and on a repeat")
+    # The backward's launches alone (the reduction and its fold), then the
+    # whole backward through autograd, as refit runs it.
+    record("grad", "se_cov_grad", f"{n}x{n} l={l} float64 reduction",
+           lambda: se._launch_reduce(g_out, d_g),
+           lambda: (g_out[None] * want_d).sum((1, 2)),
+           8 * ((1 + l) * n * n + l), ops["reduce"], "float64_simt",
+           float((via_g - want_g).abs().max()), None)
+    log(f"  se_cov_grad {n}x{n} f64 backward through autograd: "
+        f"{time_ms(lambda: torch.autograd.grad(k_mat, z, g_out, retain_graph=True), inner=10):.6f}"
+        " ms (CUDA events: the autograd engine's host work included)")
+    del k_mat, want_d, d_g
+    log("  library_ms is null for every K3 kernel: no single PyTorch call "
+        "computes the SE double-integral product, its derivatives or their "
+        "reduction against a gradient")
     return records
 
 
@@ -788,8 +1098,14 @@ def main_path(seed):
         f"mean batches_used {np.mean(used):.3f}, launches {counts}")
     assert counts["fused_masked_scan"] > 0 and counts["gp_batch_infer"] > 0, (
         counts)
-    # Every covariance build (ingest, improve) runs K3's forward.
-    assert counts["se_cov_matrix"] > 0 and counts["se_cov_grad"] == 0, counts
+    # Every covariance build runs a K3 forward: improve (and the ingest
+    # cross block) the general kernel, the ingest blocks the Gram kernel;
+    # with no lengthscale gradient to take, none writes derivatives.
+    log(f"K3 launches by route: Gram {counts['se_cov_gram']}, general "
+        f"{counts['se_cov_matrix']}, with derivatives "
+        f"{counts['se_cov_derivs']}, reductions {counts['se_cov_grad']}")
+    assert counts["se_cov_matrix"] > 0 and counts["se_cov_gram"] > 0, counts
+    assert counts["se_cov_derivs"] == 0 and counts["se_cov_grad"] == 0, counts
     eng.drain()
     _assert_healthy(eng)
     covered, n_cells, med = _coverage(rel, results)
@@ -915,8 +1231,17 @@ def learning_and_checkpoints(eng, rel, cfg, seed, e2e3):
     _assert_healthy(eng)
     log(f"refit: {len(fits)} synopses in {refit_s:.3f} s, launches {counts}"
         f", {finite_steps} finite steps")
-    assert counts["se_cov_matrix"] >= REFIT_STEPS * len(fits), counts
+    # Every Adam step builds its NLL's Gram matrix with derivatives and
+    # reduces them in its backward; the rebuilds after the fits take the
+    # Gram route too, and nothing takes the general one.
+    log(f"K3 launches by route in the refit: Gram {counts['se_cov_gram']}, "
+        f"general {counts['se_cov_matrix']}, with derivatives "
+        f"{counts['se_cov_derivs']}, reductions {counts['se_cov_grad']}")
+    assert counts["se_cov_derivs"] >= REFIT_STEPS * len(fits), counts
+    assert counts["se_cov_gram"] >= counts["se_cov_derivs"] + len(fits), (
+        counts)
     assert counts["se_cov_grad"] >= REFIT_STEPS * len(fits), counts
+    assert counts["se_cov_matrix"] == 0, counts
 
     # 2. Checkpoint right after the refit (a refit ends in a full rebuild,
     # which is what a restore computes), restore into a fresh engine, and
@@ -1547,9 +1872,19 @@ def main():
              shape=f"T={SF1_BATCH_T} Q=128 f32", **k5),
         dict(name="se_cov_matrix", route="cuda",
              source="src/repro_torch/csrc/se_covariance.cu",
-             replaces=K3_REPLACES, launches=refit_counts["se_cov_matrix"],
+             replaces=K3_REPLACES, launches=counts["se_cov_matrix"],
+             shape=f"128x{SYNOPSIS_C} l=3 f64",
+             **k3[("general", 128, "float64")]),
+        dict(name="se_cov_gram", route="cuda",
+             source="src/repro_torch/csrc/se_covariance.cu",
+             replaces=K3_REPLACES, launches=counts["se_cov_gram"],
              shape=f"{SYNOPSIS_C}x{SYNOPSIS_C} l=3 f64",
-             **k3[(SYNOPSIS_C, "float64")]),
+             **k3[("gram", "float64")]),
+        dict(name="se_cov_derivs", route="cuda",
+             source="src/repro_torch/csrc/se_covariance.cu",
+             replaces=K3_REPLACES, launches=refit_counts["se_cov_derivs"],
+             shape=f"{SYNOPSIS_C}x{SYNOPSIS_C} l=3 f64 Gram",
+             **k3["derivs"]),
         dict(name="se_cov_grad", route="cuda",
              source="src/repro_torch/csrc/se_covariance.cu",
              replaces=K3_REPLACES, launches=refit_counts["se_cov_grad"],
@@ -1558,10 +1893,11 @@ def main():
     log("library_ms is null for the fused masked scan and the fused GP "
         "improve: no single PyTorch call computes either; masked_partials' "
         "is one cuBLAS DGEMM, mask.T @ [m, m^2, 1]")
-    log("launches: K1, K2 in phase 3's serve stream "
-        f"({counts['se_cov_matrix']} K3 forward launches there too); K4 in "
-        "phase 5's mesh session; K5 over the SF1 batches; K3 forward and "
-        "gradient in phase 6's refit")
+    log("launches: K1, K2 and K3's general and Gram forwards in phase 3's "
+        "serve stream; K4 in phase 5's mesh session; K5 over the SF1 "
+        "batches; K3's forward with derivatives and its reduction in phase "
+        f"6's refit (which also ran {refit_counts['se_cov_gram']} Gram "
+        "forwards, derivatives included)")
     log(f"end to end: phase 3 {json.dumps(e2e)}; phase 6 {json.dumps(e2e6)}; "
         f"phase 5 {json.dumps(e2e5)};"
         f" CUDA vs CPU {json.dumps(worst)};"

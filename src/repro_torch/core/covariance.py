@@ -11,9 +11,10 @@ with AVG answers normalized by the predicate-region size |F_i||F_j|
 (Appendix F.3's mu estimators imply exactly this normalization).
 
 The numeric factor of every covariance build goes through the SE-covariance
-kernel's wrapper (``repro_torch.kernels.se_covariance``): the CUDA kernel on
-the card (its gradient kernel under autograd, for the lengthscales), the
-plain version on the CPU. Everything else is plain PyTorch on whichever
+kernel's wrappers (``repro_torch.kernels.se_covariance``): the CUDA kernels
+on the card (the Gram kernel for a batch against itself; under autograd
+they save the lengthscale derivatives their backward reduces), the plain
+version on the CPU. Everything else is plain PyTorch on whichever
 device the snippets live, float64 throughout (the SE double integral is an
 inclusion-exclusion whose difference is O(width²) — catastrophic
 cancellation in f32 for narrow predicates).
@@ -50,8 +51,15 @@ def numeric_factors(bi: SnippetBatch, bj: SnippetBatch, params: GPParams):
     0)``.
     """
     lo_i, hi_i, w_i = widened(bi.lo, bi.hi)  # (n_i, l)
-    lo_j, hi_j, w_j = widened(bj.lo, bj.hi)  # (n_j, l)
     ones_i = torch.ones((bi.n,), dtype=F64, device=lo_i.device)
+    if bj is bi:
+        # A Gram matrix (refit's NLL, ingest blocks, rebuilds): the kernel
+        # computes each symmetric pair once. Told by identity: comparing
+        # values would cost a device-to-host sync.
+        num = se_ops.se_cov_gram(lo_i, hi_i, params.ls, 1.0, ones_i)
+        vol = w_i.prod(-1)
+        return num, vol, vol
+    lo_j, hi_j, w_j = widened(bj.lo, bj.hi)  # (n_j, l)
     ones_j = torch.ones((bj.n,), dtype=F64, device=lo_j.device)
     num = se_ops.se_cov_matrix(lo_i, hi_i, lo_j, hi_j, params.ls, 1.0,
                                ones_i, ones_j)

@@ -1,6 +1,7 @@
 // Asynchronous copies into shared memory (cp.async, tracked by commit/wait
 // groups) and the shared-memory opt-in, shared by the kernels redesigned
-// for Hopper: K4 (fused_masked_scan.cu) and K2 (gp_batch_infer.cu).
+// for Hopper: K4 (fused_masked_scan.cu), K2 (gp_batch_infer.cu) and K3's
+// Gram kernel (se_covariance.cu, the opt-in only).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,17 +57,23 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
   }
 }
 
-// Let `kernel` use up to 227 KB of dynamic shared memory (the most a block
-// may), once per device: `devices` holds a bit for each device done.
-inline cudaError_t opt_in_smem(const void* kernel, uint64_t& devices) {
+// Let `kernel` use up to `bytes` of dynamic shared memory (by default 227
+// KB, the most a block may, for a kernel with no static shared memory),
+// once per device: `devices` holds a bit for each device done. A refusal
+// is returned and cleared from the thread's last error.
+inline cudaError_t opt_in_smem(const void* kernel, uint64_t& devices,
+                               int bytes = 227 * 1024) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
   if (devices & bit) return cudaSuccess;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           227 * 1024);
-  if (e == cudaSuccess) devices |= bit;
+                           bytes);
+  if (e == cudaSuccess)
+    devices |= bit;
+  else
+    cudaGetLastError();
   return e;
 }
 

@@ -1,56 +1,78 @@
-// SE-covariance kernel for Hopper (sm_90a): forward and gradient (K3).
+// SE-covariance kernels for Hopper (sm_90a): K3's forward, its Gram form,
+// and the lengthscale gradient from derivatives the forward saves.
 //
 // Replaces the TPU kernel src/repro/kernels/se_covariance/kernel.py
-// (_se_cov_kernel, launched by se_cov_pallas). For n_i snippets against n_j
-// snippets with pre-widened numeric ranges [lo, hi] over l dimensions:
+// (_se_cov_kernel, launched by se_cov_pallas) and the XLA gradient of its
+// function. For n_i snippets against n_j snippets with pre-widened numeric
+// ranges [lo, hi] over l dimensions:
 //
 //     out[a,b] = (sigma2 * prod_k g_k[a,b]) / (norm_i[a] * norm_j[b])
 //     g_k      = max(II_k, 0),
 //     II_k     = F(hi_i-hi_j) - F(hi_i-lo_j) - F(lo_i-hi_j) + F(lo_i-lo_j)
 //     F(u; z)  = ((-0.5 z) z) exp(-(u/z)^2) - (((0.5 sqrt(pi)) z) u) erf(u/z)
 //
-// with z = ls[k], the closed-form SE double integral (Appendix F.1). The
-// gradient pass computes, for an incoming gradient G (n_i, n_j),
+// with z = ls[k], the closed-form SE double integral (Appendix F.1). With
+// derivatives on, a forward also writes, for every dimension k,
 //
-//     grad_ls[k] = sum_{a,b} G s prod_{j!=k} g_j dg_k/dz_k,
-//     s = sigma2 / (norm_i norm_j),
-//     dg_k/dz_k = dII_k/dz where II_k >= 0, else 0 (torch.clamp's backward),
+//     D_k[a,b] = (s prod_{j!=k} g_j) dg_k,   s = sigma2 / (norm_i norm_j),
+//     dg_k = dII_k/dz where II_k >= 0, else 0 (torch.clamp's backward),
 //     dF/dz(u; z) = -z exp(-(u/z)^2) - (0.5 sqrt(pi)) u erf(u/z),
 //
-// dII/dz by the same inclusion-exclusion. prod_{j!=k} is formed directly,
-// never as out / g_k: g_k is ~1e-12 on equality ranges and may be 0.
+// dII/dz by the same inclusion-exclusion (prod_{j!=k} is formed directly,
+// never as out / g_k: g_k is ~1e-12 on equality ranges and may be 0), and
+// the backward reduces grad_ls[k] = sum_{a,b} G[a,b] D_k[a,b].
 //
-// What bounds it on the H100: operations. Each output element evaluates
-// 4 l antiderivatives, each one division, one exp and one erf in float64
-// (libdevice routines of tens of instructions, all on the non-tensor FP64
-// pipe: nothing here maps to the tensor cores), while it reads 4 l + 2
-// numbers and writes one. At n_i = n_j = 2000, l = 3 that is 48M exp and
-// 48M erf against 32 MB written (~0.01 ms at 3.35 TB/s).
-//
-// Design (a first kernel, simple and right):
-//  * Forward: one thread per output element. A block of 8 x 32 threads
-//    stages its (8, l) and (32, l) range tiles and the l lengthscales in
-//    shared memory; the l loop runs in registers; a warp writes 32
-//    consecutive outputs of one row. The arithmetic is written in the plain
-//    PyTorch version's operation order with explicit round-to-nearest
-//    intrinsics (no contraction into FMAs), so that on the card the kernel
-//    can give the plain version's bits; exp and erf are CUDA's math library
-//    (the functions PyTorch's own CUDA exp and erf call).
-//  * Gradient: the same tiling recomputes g_k and dII_k in registers (l <=
-//    MAX_L, loops fully unrolled), forms each element's l contributions,
-//    reduces them over the block with a fixed warp-shuffle tree and a fixed
-//    order over warps, and writes one row of l partials per block. A second
-//    pass folds the partials in block order (each of 256 threads a fixed
-//    stride, then a fixed tree). No float atomics: every run gives the same
-//    bits.
-//  * Templated on float / double (the reference takes both dtypes).
+// What bounds each entry point on the H100, and what the design does:
+//  * The forwards (se_cov_launch_*, se_cov_gram_launch_*): operations on
+//    the non-tensor FP64 pipe. Each antiderivative is a division, an exp
+//    and an erf (libdevice routines of tens of FP64 instructions; nothing
+//    here maps to the tensor cores), while an element reads a few numbers
+//    and writes one (1 + l with derivatives). So the design cuts the
+//    antiderivatives. F is even: (-u)/z is -(u/z), so the square and exp
+//    agree; erf is odd; and (c2 (-u)) (-erf) is (c2 u) erf exactly. So the
+//    (b, a) entry of a Gram matrix (one batch against itself: every refit
+//    step, every rebuild and ingest block) needs exactly the four values of
+//    its (a, b) entry, in another inclusion-exclusion order: ((F0 - F2) -
+//    F1) + F3 against ((F0 - F1) - F2) + F3. The Gram kernel's grid covers
+//    the upper triangle of 32 x 32 tiles only; an off-diagonal block
+//    evaluates each pair's antiderivatives once, forms both entries as the
+//    general kernel forms them, writes the (a, b) tile directly and the
+//    (b, a) tile through a padded shared-memory transpose, so both tiles
+//    are written coalesced. A diagonal block computes every entry of its
+//    tile as the general kernel does. Every entry is bitwise the general
+//    kernel's.
+//  * Derivatives share u/z, exp and erf with F: a few multiplies more an
+//    antiderivative and l more numbers written an element. They are written
+//    only when the lengthscales need a gradient, and the backward no longer
+//    evaluates a single exp or erf.
+//  * The reduction (se_cov_reduce_launch_*): bytes. It reads G and D once,
+//    (1 + l) n_i n_j numbers (128 MB at 2000 x 2000, l = 3, f64); each
+//    thread has its 8 elements of G and the 8 l of D in flight at once.
+//    Fixed-order block partials (a shuffle tree, then the warps in order),
+//    then the ordered fold of se_cov_fold. No float atomics: every run
+//    gives the same bits.
+//  * Arithmetic in the plain PyTorch version's operation order with
+//    explicit round-to-nearest intrinsics (no contraction into FMAs), so
+//    that each dimension's integral is the plain version's to the bit; exp
+//    and erf are CUDA's math library (the functions PyTorch's own CUDA exp
+//    and erf call). Kernels are templated on the type (the reference takes
+//    f64 and f32) and on l (0..MAX_L), so the per-dimension values stay in
+//    registers.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
-constexpr int TI = 8;     // rows (i side) per block
-constexpr int TJ = 32;    // columns (j side) per block = one warp
-constexpr int MAX_L = 8;  // numeric dimensions the kernel takes
+constexpr int TI = 8;     // general forward: rows (i side) per block
+constexpr int TJ = 32;    // general forward: columns (j side) per block
+constexpr int GT = 32;    // Gram forward: side of a square tile
+constexpr int GR = 8;     // Gram forward: thread rows (GT / GR rows each)
+constexpr int MAX_L = 8;  // numeric dimensions the kernels take
+constexpr int RED_THREADS = 256;
+constexpr int RED_EACH = 8;                        // elements a thread
+constexpr int RED_CHUNK = RED_THREADS * RED_EACH;  // elements a block
 constexpr int FOLD_THREADS = 256;
 constexpr double HALF_SQRT_PI = 0.5 * 1.7724538509055159;
 
@@ -67,7 +89,8 @@ __device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b)
 __device__ __forceinline__ float rexp(float x) { return expf(x); }
 __device__ __forceinline__ float rerf(float x) { return erff(x); }
 
-// F(u; z) and, when grad is set, dF/dz, sharing u/z, exp and erf.
+// F(u; z) and, when grad is set, dF/dz, sharing u/z, exp and erf. c1 and c2
+// are (-0.5 z) z and (0.5 sqrt(pi)) z.
 template <typename T, bool grad>
 __device__ __forceinline__ void antideriv(T u, T z, T c1, T c2, T* f, T* df) {
   const T r = rdiv(u, z);
@@ -77,132 +100,258 @@ __device__ __forceinline__ void antideriv(T u, T z, T c1, T c2, T* f, T* df) {
   if (grad) *df = rsub(rmul(-z, e), rmul(rmul(T(HALF_SQRT_PI), u), er));
 }
 
-// II and (when grad) dII/dz for one dimension of one (a, b) pair.
-template <typename T, bool grad>
-__device__ __forceinline__ void integral(T a, T b, T c, T d, T z, T* ii,
-                                         T* dii) {
-  const T c1 = rmul(rmul(T(-0.5), z), z);
-  const T c2 = rmul(T(HALF_SQRT_PI), z);
-  T f0, f1, f2, f3, d0 = T(0), d1 = T(0), d2 = T(0), d3 = T(0);
-  antideriv<T, grad>(rsub(b, d), z, c1, c2, &f0, &d0);
-  antideriv<T, grad>(rsub(b, c), z, c1, c2, &f1, &d1);
-  antideriv<T, grad>(rsub(a, d), z, c1, c2, &f2, &d2);
-  antideriv<T, grad>(rsub(a, c), z, c1, c2, &f3, &d3);
-  *ii = radd(rsub(rsub(f0, f1), f2), f3);
-  if (grad) *dii = radd(rsub(rsub(d0, d1), d2), d3);
+// Inclusion-exclusion over the four antiderivatives of one dimension of the
+// pair (a, b), taken at b-d, b-c, a-d, a-c ([a, b] the i side's range,
+// [c, d] the j side's): the (a, b) entry in the plain version's order,
+// ((f0 - f1) - f2) + f3, or, `swapped`, the (b, a) entry, whose second and
+// third antiderivatives are (a, b)'s third and second.
+template <typename T>
+__device__ __forceinline__ T incl_excl(const T* f, bool swapped) {
+  return radd(rsub(rsub(f[0], f[swapped ? 2 : 1]), f[swapped ? 1 : 2]), f[3]);
 }
 
-// Stage the block's range tiles and the lengthscales in shared memory.
-// Rows past the edge get the unit range [0, 1] and are never written.
-template <typename T>
-__device__ __forceinline__ void stage(const T* lo_i, const T* hi_i,
-                                      const T* lo_j, const T* hi_j,
-                                      const T* ls, int ni, int nj, int l,
-                                      T* a_s, T* b_s, T* c_s, T* d_s,
-                                      T* z_s) {
-  const int tid = threadIdx.y * TJ + threadIdx.x;
-  const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
-  for (int e = tid; e < TI * l; e += TI * TJ) {
-    const bool in = i0 + e / l < ni;
-    a_s[e] = in ? lo_i[(size_t)i0 * l + e] : T(0);
-    b_s[e] = in ? hi_i[(size_t)i0 * l + e] : T(1);
+// A block's staged inputs: ranges (rows, L) and norms of its i-side and
+// j-side rows, and the lengthscales with their two factors.
+template <typename T, int L, int RI, int RJ>
+struct Staged {
+  static constexpr int LS = L > 0 ? L : 1;
+  T a[RI * LS], b[RI * LS], ni[RI];
+  T c[RJ * LS], d[RJ * LS], nj[RJ];
+  T z[LS], c1[LS], c2[LS];
+};
+
+// Rows past n get the unit range [0, 1] and norm 1, and are never written.
+template <typename T, int L>
+__device__ __forceinline__ void stage_side(const T* lo, const T* hi,
+                                           const T* norm, int row0, int rows,
+                                           int n, T* lo_s, T* hi_s, T* norm_s,
+                                           int tid, int threads) {
+  constexpr int LS = L > 0 ? L : 1;
+  for (int e = tid; e < rows * L; e += threads) {
+    const bool in = row0 + e / LS < n;
+    lo_s[e] = in ? lo[(size_t)row0 * L + e] : T(0);
+    hi_s[e] = in ? hi[(size_t)row0 * L + e] : T(1);
   }
-  for (int e = tid; e < TJ * l; e += TI * TJ) {
-    const bool in = j0 + e / l < nj;
-    c_s[e] = in ? lo_j[(size_t)j0 * l + e] : T(0);
-    d_s[e] = in ? hi_j[(size_t)j0 * l + e] : T(1);
+  for (int e = tid; e < rows; e += threads)
+    norm_s[e] = row0 + e < n ? norm[row0 + e] : T(1);
+}
+
+template <typename T, int L, int RI, int RJ>
+__device__ __forceinline__ void stage(Staged<T, L, RI, RJ>& s, const T* lo_i,
+                                      const T* hi_i, const T* norm_i, int i0,
+                                      int ni, const T* lo_j, const T* hi_j,
+                                      const T* norm_j, int j0, int nj,
+                                      const T* ls, int tid, int threads) {
+  stage_side<T, L>(lo_i, hi_i, norm_i, i0, RI, ni, s.a, s.b, s.ni, tid,
+                   threads);
+  stage_side<T, L>(lo_j, hi_j, norm_j, j0, RJ, nj, s.c, s.d, s.nj, tid,
+                   threads);
+  if (tid < L) {
+    const T z = ls[tid];
+    s.z[tid] = z;
+    s.c1[tid] = rmul(rmul(T(-0.5), z), z);
+    s.c2[tid] = rmul(T(HALF_SQRT_PI), z);
   }
-  for (int e = tid; e < l; e += TI * TJ) z_s[e] = ls[e];
   __syncthreads();
 }
 
-template <typename T>
+// The per-dimension integrals (and with derivs their z-derivatives) of the
+// pair (i-side row ra, j-side row rb): the (a, b) entry's into ii/dii and,
+// with `both`, the (b, a) entry's into jj/djj from the same antiderivatives.
+template <typename T, int L, bool derivs, bool both, int RI, int RJ>
+__device__ __forceinline__ void integrals(const Staged<T, L, RI, RJ>& s,
+                                          int ra, int rb, T* ii, T* dii,
+                                          T* jj, T* djj) {
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const T a = s.a[ra * L + k], b = s.b[ra * L + k];
+    const T c = s.c[rb * L + k], d = s.d[rb * L + k];
+    const T z = s.z[k], c1 = s.c1[k], c2 = s.c2[k];
+    T f[4], df[4] = {T(0), T(0), T(0), T(0)};
+    antideriv<T, derivs>(rsub(b, d), z, c1, c2, &f[0], &df[0]);
+    antideriv<T, derivs>(rsub(b, c), z, c1, c2, &f[1], &df[1]);
+    antideriv<T, derivs>(rsub(a, d), z, c1, c2, &f[2], &df[2]);
+    antideriv<T, derivs>(rsub(a, c), z, c1, c2, &f[3], &df[3]);
+    ii[k] = incl_excl(f, false);
+    if (derivs) dii[k] = incl_excl(df, false);
+    if (both) {
+      jj[k] = incl_excl(f, true);
+      if (derivs) djj[k] = incl_excl(df, true);
+    }
+  }
+}
+
+// One entry from its per-dimension integrals: the clamp, the product ((g0
+// g1) g2 ...) and the scale as the plain version does them (nn = norm_i
+// norm_j); with derivs also D_k = (s prod_{j!=k} g_j) dg_k into dv.
+template <typename T, int L, bool derivs>
+__device__ __forceinline__ T entry(const T* ii, const T* dii, T sigma2, T nn,
+                                   T* dv) {
+  T g[L > 0 ? L : 1];
+  T acc = T(1);
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    g[k] = ii[k] < T(0) ? T(0) : ii[k];  // clamp(min=0): NaN stays NaN
+    acc = rmul(acc, g[k]);
+  }
+  if constexpr (derivs) {
+    const T s = rdiv(sigma2, nn);
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      T others = T(1);
+#pragma unroll
+      for (int j = 0; j < L; ++j)
+        if (j != k) others = rmul(others, g[j]);
+      dv[k] = rmul(rmul(s, others), ii[k] >= T(0) ? dii[k] : T(0));
+    }
+  }
+  return rdiv(rmul(sigma2, acc), nn);
+}
+
+// General forward: one thread per (a, b), a block of TI x TJ.
+template <typename T, int L, bool derivs>
 __global__ void __launch_bounds__(TI * TJ)
 se_cov_fwd(const T* __restrict__ lo_i, const T* __restrict__ hi_i,
            const T* __restrict__ lo_j, const T* __restrict__ hi_j,
            const T* __restrict__ ls, const T* __restrict__ norm_i,
-           const T* __restrict__ norm_j, T sigma2, int ni, int nj, int l,
-           T* __restrict__ out) {
-  __shared__ T a_s[TI * MAX_L], b_s[TI * MAX_L];
-  __shared__ T c_s[TJ * MAX_L], d_s[TJ * MAX_L], z_s[MAX_L];
-  stage<T>(lo_i, hi_i, lo_j, hi_j, ls, ni, nj, l, a_s, b_s, c_s, d_s, z_s);
-  const int a = blockIdx.y * TI + threadIdx.y;
-  const int b = blockIdx.x * TJ + threadIdx.x;
+           const T* __restrict__ norm_j, T sigma2, int ni, int nj,
+           T* __restrict__ out, T* __restrict__ dout) {
+  constexpr int LS = L > 0 ? L : 1;
+  __shared__ Staged<T, L, TI, TJ> s;
+  const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
+  stage(s, lo_i, hi_i, norm_i, i0, ni, lo_j, hi_j, norm_j, j0, nj, ls,
+        threadIdx.y * TJ + threadIdx.x, TI * TJ);
+  const int a = i0 + threadIdx.y, b = j0 + threadIdx.x;
   if (a >= ni || b >= nj) return;
-  const int ra = threadIdx.y * l, rb = threadIdx.x * l;
-  T acc = T(1);
-  for (int k = 0; k < l; ++k) {
-    T ii, unused;
-    integral<T, false>(a_s[ra + k], b_s[ra + k], c_s[rb + k], d_s[rb + k],
-                       z_s[k], &ii, &unused);
-    // clamp(min=0) as PyTorch does it: NaN stays NaN.
-    acc = rmul(acc, ii < T(0) ? T(0) : ii);
+  T ii[LS], dii[LS], dv[LS];
+  integrals<T, L, derivs, false>(s, threadIdx.y, threadIdx.x, ii, dii,
+                                 nullptr, nullptr);
+  const size_t at = (size_t)a * nj + b;
+  out[at] = entry<T, L, derivs>(ii, dii, sigma2,
+                                rmul(s.ni[threadIdx.y], s.nj[threadIdx.x]),
+                                dv);
+  if constexpr (derivs) {
+    const size_t plane = (size_t)ni * nj;
+#pragma unroll
+    for (int k = 0; k < L; ++k) dout[k * plane + at] = dv[k];
   }
-  out[(size_t)a * nj + b] = rdiv(rmul(sigma2, acc),
-                                 rmul(norm_i[a], norm_j[b]));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(TI * TJ)
-se_cov_bwd(const T* __restrict__ lo_i, const T* __restrict__ hi_i,
-           const T* __restrict__ lo_j, const T* __restrict__ hi_j,
-           const T* __restrict__ ls, const T* __restrict__ norm_i,
-           const T* __restrict__ norm_j, T sigma2, const T* __restrict__ G,
-           int ni, int nj, int l, T* __restrict__ part) {
-  __shared__ T a_s[TI * MAX_L], b_s[TI * MAX_L];
-  __shared__ T c_s[TJ * MAX_L], d_s[TJ * MAX_L], z_s[MAX_L];
-  __shared__ T warp_s[TI][MAX_L];
-  stage<T>(lo_i, hi_i, lo_j, hi_j, ls, ni, nj, l, a_s, b_s, c_s, d_s, z_s);
-  const int a = blockIdx.y * TI + threadIdx.y;
-  const int b = blockIdx.x * TJ + threadIdx.x;
-  T contrib[MAX_L];
+// Block `block` of the Gram grid covers tile (ti, tj), ti <= tj: the upper
+// triangle of an n_tiles x n_tiles grid of tiles, row by row.
+__host__ __device__ inline void gram_tile(int n_tiles, int block, int* ti,
+                                          int* tj) {
+  int i = 0, start = 0;
+  while (block >= start + (n_tiles - i)) {
+    start += n_tiles - i;
+    ++i;
+  }
+  *ti = i;
+  *tj = i + (block - start);
+}
+
+// Gram forward: out = K(x, x). A block of GT x GR threads owns tile (ti,
+// tj); thread (x, y) computes the pairs (ti GT + y + GR r, tj GT + x) for
+// r < GT / GR. Dynamic shared memory: (derivs ? L + 1 : 1) planes of
+// GT x (GT + 1), the transposed tile of out (and of each D_k).
+template <typename T, int L, bool derivs>
+__global__ void __launch_bounds__(GT * GR)
+se_cov_gram(const T* __restrict__ lo, const T* __restrict__ hi,
+            const T* __restrict__ ls, const T* __restrict__ norm, T sigma2,
+            int n, T* __restrict__ out, T* __restrict__ dout) {
+  constexpr int LS = L > 0 ? L : 1;
+  __shared__ Staged<T, L, GT, GT> s;
+  extern __shared__ __align__(16) unsigned char tr_raw[];
+  T(*tr)[GT + 1] = reinterpret_cast<T(*)[GT + 1]>(tr_raw);
+  int ti, tj;
+  gram_tile((n + GT - 1) / GT, blockIdx.x, &ti, &tj);
+  const int i0 = ti * GT, j0 = tj * GT;
+  stage(s, lo, hi, norm, i0, n, lo, hi, norm, j0, n, ls,
+        threadIdx.y * GT + threadIdx.x, GT * GR);
+  const bool diag = ti == tj;
+  const size_t plane = (size_t)n * n;
+#pragma unroll 1
+  for (int r = 0; r < GT / GR; ++r) {
+    const int al = threadIdx.y + GR * r, bl = threadIdx.x;
+    const int a = i0 + al, b = j0 + bl;
+    T ii[LS], dii[LS], jj[LS], djj[LS], dv[LS];
+    integrals<T, L, derivs, true>(s, al, bl, ii, dii, jj, djj);
+    // norm_a norm_b: the (b, a) entry's norm_b norm_a has the same bits.
+    const T nn = rmul(s.ni[al], s.nj[bl]);
+    const T v = entry<T, L, derivs>(ii, dii, sigma2, nn, dv);
+    if (a < n && b < n) {
+      const size_t at = (size_t)a * n + b;
+      out[at] = v;
+      if constexpr (derivs) {
 #pragma unroll
-  for (int k = 0; k < MAX_L; ++k) contrib[k] = T(0);
-  if (a < ni && b < nj) {
-    const int ra = threadIdx.y * l, rb = threadIdx.x * l;
-    T g[MAX_L], dg[MAX_L];
-#pragma unroll
-    for (int k = 0; k < MAX_L; ++k) {
-      g[k] = T(1);
-      dg[k] = T(0);
-      if (k < l) {
-        T ii, dii;
-        integral<T, true>(a_s[ra + k], b_s[ra + k], c_s[rb + k], d_s[rb + k],
-                          z_s[k], &ii, &dii);
-        g[k] = ii < T(0) ? T(0) : ii;
-        dg[k] = ii >= T(0) ? dii : T(0);
+        for (int k = 0; k < L; ++k) dout[k * plane + at] = dv[k];
       }
     }
-    const T w = G[(size_t)a * nj + b] * (sigma2 / (norm_i[a] * norm_j[b]));
+    if (!diag) {
+      const T w = entry<T, L, derivs>(jj, djj, sigma2, nn, dv);
+      tr[bl][al] = w;
+      if constexpr (derivs) {
 #pragma unroll
-    for (int k = 0; k < MAX_L; ++k) {
-      if (k < l) {
-        T others = T(1);
-#pragma unroll
-        for (int j = 0; j < MAX_L; ++j)
-          if (j != k && j < l) others *= g[j];
-        contrib[k] = w * others * dg[k];
+        for (int k = 0; k < L; ++k) tr[(k + 1) * GT + bl][al] = dv[k];
       }
     }
   }
-  // Fixed-order block reduction: a shuffle tree within each warp (one row
-  // of the tile), then the warps in row order.
+  if (diag) return;  // uniform over the block
+  __syncthreads();
+#pragma unroll 1
+  for (int r = 0; r < GT / GR; ++r) {
+    const int bl = threadIdx.y + GR * r, al = threadIdx.x;
+    const int a = i0 + al, b = j0 + bl;
+    if (a < n && b < n) {
+      const size_t at = (size_t)b * n + a;
+      out[at] = tr[bl][al];
+      if constexpr (derivs) {
 #pragma unroll
-  for (int k = 0; k < MAX_L; ++k) {
-    if (k < l) {
-      T v = contrib[k];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      if (threadIdx.x == 0) warp_s[threadIdx.y][k] = v;
+        for (int k = 0; k < L; ++k) dout[k * plane + at] = tr[(k + 1) * GT + bl][al];
+      }
     }
+  }
+}
+
+// part[block, k] = sum over the block's RED_CHUNK elements e of G[e] D_k[e]
+// (D is (L, m)): thread t sums e = t, t + 256, ... in order, then a fixed
+// shuffle tree within each warp and the warps in order.
+template <typename T, int L>
+__global__ void __launch_bounds__(RED_THREADS)
+se_cov_reduce(const T* __restrict__ G, const T* __restrict__ D, long long m,
+              T* __restrict__ part) {
+  constexpr int LS = L > 0 ? L : 1;
+  __shared__ T warp_s[RED_THREADS / 32][LS];
+  const long long base = (long long)blockIdx.x * RED_CHUNK + threadIdx.x;
+  T g[RED_EACH], acc[LS];
+#pragma unroll
+  for (int i = 0; i < RED_EACH; ++i) {
+    const long long e = base + (long long)i * RED_THREADS;
+    g[i] = e < m ? G[e] : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    acc[k] = T(0);
+#pragma unroll
+    for (int i = 0; i < RED_EACH; ++i) {
+      const long long e = base + (long long)i * RED_THREADS;
+      if (e < m) acc[k] += g[i] * D[k * m + e];
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    T v = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_s[warp][k] = v;
   }
   __syncthreads();
-  if (threadIdx.y == 0 && threadIdx.x < l) {
-    const int k = threadIdx.x;
-    T s = T(0);
-    for (int r = 0; r < TI; ++r) s += warp_s[r][k];
-    part[(size_t)(blockIdx.y * gridDim.x + blockIdx.x) * l + k] = s;
+  if (threadIdx.x < L) {
+    T t = T(0);
+    for (int w = 0; w < RED_THREADS / 32; ++w) t += warp_s[w][threadIdx.x];
+    part[(size_t)blockIdx.x * L + threadIdx.x] = t;
   }
 }
 
@@ -225,58 +374,136 @@ se_cov_fold(const T* __restrict__ part, int n_blocks, int l,
   if (threadIdx.x == 0) grad_ls[k] = s[0];
 }
 
-dim3 grid_for(int ni, int nj) {
-  return dim3((nj + TJ - 1) / TJ, (ni + TI - 1) / TI);
+// One antiderivative (and with grad its z-derivative) an element: the
+// kernels' own code, for the card's check that F is even bit for bit and
+// for counting its FP64 instructions in the built library.
+template <typename T, bool grad>
+__global__ void se_cov_probe(const T* __restrict__ u, T z, int m,
+                             T* __restrict__ f, T* __restrict__ df) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  T fv, dfv = T(0);
+  antideriv<T, grad>(u[i], z, rmul(rmul(T(-0.5), z), z),
+                     rmul(T(HALF_SQRT_PI), z), &fv, &dfv);
+  f[i] = fv;
+  if (grad) df[i] = dfv;
 }
 
+// Run CALL with the constant L equal to the run-time l (0..MAX_L).
+#define SE_WITH_L(l, CALL)                   \
+  switch (l) {                               \
+    case 0: { constexpr int L = 0; return CALL; } \
+    case 1: { constexpr int L = 1; return CALL; } \
+    case 2: { constexpr int L = 2; return CALL; } \
+    case 3: { constexpr int L = 3; return CALL; } \
+    case 4: { constexpr int L = 4; return CALL; } \
+    case 5: { constexpr int L = 5; return CALL; } \
+    case 6: { constexpr int L = 6; return CALL; } \
+    case 7: { constexpr int L = 7; return CALL; } \
+    case 8: { constexpr int L = 8; return CALL; } \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+static_assert(MAX_L == 8, "SE_WITH_L lists l = 0..8");
+
 template <typename T>
-int fwd_launch(const T* lo_i, const T* hi_i, const T* lo_j, const T* hi_j,
-               const T* ls, const T* norm_i, const T* norm_j, T sigma2,
-               int ni, int nj, int l, T* out, void* stream) {
-  if (l < 0 || l > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
-  if (ni <= 0 || nj <= 0) return 0;
-  se_cov_fwd<T><<<grid_for(ni, nj), dim3(TJ, TI), 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j, sigma2, ni, nj, l, out);
+struct Args {
+  const T *lo_i, *hi_i, *lo_j, *hi_j, *ls, *norm_i, *norm_j;
+  T sigma2;
+  int ni, nj;
+  T *out, *dout;
+};
+
+template <typename T, int L, bool derivs>
+int fwd_l(const Args<T>& p, cudaStream_t s) {
+  const dim3 grid((p.nj + TJ - 1) / TJ, (p.ni + TI - 1) / TI);
+  se_cov_fwd<T, L, derivs><<<grid, dim3(TJ, TI), 0, s>>>(
+      p.lo_i, p.hi_i, p.lo_j, p.hi_j, p.ls, p.norm_i, p.norm_j, p.sigma2,
+      p.ni, p.nj, p.out, p.dout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int L, bool derivs>
+int gram_l(const Args<T>& p, cudaStream_t s) {
+  // The transposed planes; above 48 KB (derivatives at l >= 5 in f64) only
+  // after the opt-in.
+  constexpr int smem = (derivs ? L + 1 : 1) * GT * (GT + 1) * sizeof(T);
+  static uint64_t opted_in = 0;  // devices this instance may use smem on
+  cudaError_t e = opt_in_smem(
+      reinterpret_cast<const void*>(se_cov_gram<T, L, derivs>), opted_in,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (p.ni + GT - 1) / GT;
+  se_cov_gram<T, L, derivs><<<tiles * (tiles + 1) / 2, dim3(GT, GR), smem,
+                              s>>>(p.lo_i, p.hi_i, p.ls, p.norm_i, p.sigma2,
+                                   p.ni, p.out, p.dout);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int grad_launch(const T* lo_i, const T* hi_i, const T* lo_j, const T* hi_j,
-                const T* ls, const T* norm_i, const T* norm_j, T sigma2,
-                const T* G, int ni, int nj, int l, T* part, T* grad_ls,
-                void* stream) {
+int forward(bool gram, const Args<T>& p, int l, void* stream) {
   if (l < 0 || l > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
-  if (ni <= 0 || nj <= 0 || l == 0) return 0;
+  if (p.ni <= 0 || p.nj <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(ni, nj);
-  se_cov_bwd<T><<<grid, dim3(TJ, TI), 0, s>>>(
-      lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j, sigma2, G, ni, nj, l, part);
+  if (gram && p.dout) SE_WITH_L(l, (gram_l<T, L, true>(p, s)))
+  if (gram) SE_WITH_L(l, (gram_l<T, L, false>(p, s)))
+  if (p.dout) SE_WITH_L(l, (fwd_l<T, L, true>(p, s)))
+  SE_WITH_L(l, (fwd_l<T, L, false>(p, s)))
+}
+
+template <typename T, int L>
+int reduce_l(const T* G, const T* D, long long m, T* part, T* grad_ls,
+             cudaStream_t s) {
+  const long long blocks = (m + RED_CHUNK - 1) / RED_CHUNK;
+  se_cov_reduce<T, L><<<static_cast<unsigned>(blocks), RED_THREADS, 0, s>>>(
+      G, D, m, part);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  se_cov_fold<T><<<l, FOLD_THREADS, 0, s>>>(part, grid.x * grid.y, l,
-                                            grad_ls);
+  se_cov_fold<T><<<L, FOLD_THREADS, 0, s>>>(part, static_cast<int>(blocks),
+                                            L, grad_ls);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int reduce(const T* G, const T* D, long long m, int l, T* part, T* grad_ls,
+           void* stream) {
+  if (l < 0 || l > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0 || l == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SE_WITH_L(l, (reduce_l<T, L>(G, D, m, part, grad_ls, s)))
+}
+
+template <typename T>
+int probe(const T* u, T z, int m, T* f, T* df, void* stream) {
+  if (m <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (m + 255) / 256;
+  if (df)
+    se_cov_probe<T, true><<<blocks, 256, 0, s>>>(u, z, m, f, df);
+  else
+    se_cov_probe<T, false><<<blocks, 256, 0, s>>>(u, z, m, f, df);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). sigma2 is passed by value (as
-// a double, rounded to float for the f32 kernels, as PyTorch rounds a
+// Plain C entry points (bound with ctypes). sigma2 and z are passed by value
+// (as doubles, rounded to float for the f32 kernels, as PyTorch rounds a
 // Python scalar). Every pointer is a device pointer to contiguous data of
 // one type: lo_i, hi_i (ni, l); lo_j, hi_j (nj, l); ls (l); norm_i (ni);
-// norm_j (nj); out and G (ni, nj);
-// part (ceil(nj/32) * ceil(ni/8), l) scratch; grad_ls (l). Kernels run on
-// `stream`, nothing is allocated here, and the return value is
-// cudaGetLastError() (cudaErrorInvalidValue for l > 8).
+// norm_j (nj); out (ni, nj); dout (l, ni, nj), or null for no derivatives.
+// The Gram entry takes one side: lo, hi (n, l), norm (n), out (n, n), dout
+// (l, n, n) or null. The reduction: G (m), D (l, m), part (ceil(m / 2048),
+// l) scratch, grad_ls (l). Kernels run on `stream`, nothing is allocated
+// here, and the return value is cudaGetLastError() (cudaErrorInvalidValue
+// for l > 8).
 extern "C" int se_cov_launch_f64(const double* lo_i, const double* hi_i,
                                  const double* lo_j, const double* hi_j,
                                  const double* ls, const double* norm_i,
                                  const double* norm_j, double sigma2,
                                  int ni, int nj, int l, double* out,
-                                 void* stream) {
-  return fwd_launch<double>(lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j,
-                            sigma2, ni, nj, l, out, stream);
+                                 double* dout, void* stream) {
+  return forward<double>(false, {lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j,
+                                 sigma2, ni, nj, out, dout}, l, stream);
 }
 
 extern "C" int se_cov_launch_f32(const float* lo_i, const float* hi_i,
@@ -284,31 +511,68 @@ extern "C" int se_cov_launch_f32(const float* lo_i, const float* hi_i,
                                  const float* ls, const float* norm_i,
                                  const float* norm_j, double sigma2,
                                  int ni, int nj, int l, float* out,
-                                 void* stream) {
-  return fwd_launch<float>(lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j,
-                           static_cast<float>(sigma2), ni, nj, l, out,
-                           stream);
+                                 float* dout, void* stream) {
+  return forward<float>(false, {lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j,
+                                static_cast<float>(sigma2), ni, nj, out,
+                                dout}, l, stream);
 }
 
-extern "C" int se_cov_grad_launch_f64(const double* lo_i, const double* hi_i,
-                                      const double* lo_j, const double* hi_j,
-                                      const double* ls, const double* norm_i,
-                                      const double* norm_j, double sigma2,
-                                      const double* G,
-                                      int ni, int nj, int l, double* part,
-                                      double* grad_ls, void* stream) {
-  return grad_launch<double>(lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j,
-                             sigma2, G, ni, nj, l, part, grad_ls, stream);
-}
-
-extern "C" int se_cov_grad_launch_f32(const float* lo_i, const float* hi_i,
-                                      const float* lo_j, const float* hi_j,
-                                      const float* ls, const float* norm_i,
-                                      const float* norm_j, double sigma2,
-                                      const float* G, int ni, int nj, int l,
-                                      float* part, float* grad_ls,
+extern "C" int se_cov_gram_launch_f64(const double* lo, const double* hi,
+                                      const double* ls, const double* norm,
+                                      double sigma2, int n, int l,
+                                      double* out, double* dout,
                                       void* stream) {
-  return grad_launch<float>(lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j,
-                            static_cast<float>(sigma2), G, ni, nj, l, part,
-                            grad_ls, stream);
+  return forward<double>(true, {lo, hi, lo, hi, ls, norm, norm, sigma2, n,
+                                n, out, dout}, l, stream);
+}
+
+extern "C" int se_cov_gram_launch_f32(const float* lo, const float* hi,
+                                      const float* ls, const float* norm,
+                                      double sigma2, int n, int l,
+                                      float* out, float* dout,
+                                      void* stream) {
+  return forward<float>(true, {lo, hi, lo, hi, ls, norm, norm,
+                               static_cast<float>(sigma2), n, n, out, dout},
+                        l, stream);
+}
+
+extern "C" int se_cov_reduce_launch_f64(const double* G, const double* D,
+                                        long long m, int l, double* part,
+                                        double* grad_ls, void* stream) {
+  return reduce<double>(G, D, m, l, part, grad_ls, stream);
+}
+
+extern "C" int se_cov_reduce_launch_f32(const float* G, const float* D,
+                                        long long m, int l, float* part,
+                                        float* grad_ls, void* stream) {
+  return reduce<float>(G, D, m, l, part, grad_ls, stream);
+}
+
+// F (and dF/dz when df is not null) at each of the m values of u.
+extern "C" int se_cov_probe_f64(const double* u, double z, int m, double* f,
+                                double* df, void* stream) {
+  return probe<double>(u, z, m, f, df, stream);
+}
+
+extern "C" int se_cov_probe_f32(const float* u, double z, int m, float* f,
+                                float* df, void* stream) {
+  return probe<float>(u, static_cast<float>(z), m, f, df, stream);
+}
+
+// The launch plans, for the wrapper's tests: out = {Gram tile side, Gram
+// thread rows a block, tiles a side at n, Gram blocks at n, elements a
+// reduction block}; tiles, when not null, gets (ti, tj) of every Gram
+// block. Returns 0.
+extern "C" int se_cov_plan(int n, int* out, int* tiles) {
+  const int t = (n + GT - 1) / GT;
+  const int blocks = t * (t + 1) / 2;
+  out[0] = GT;
+  out[1] = GR;
+  out[2] = t;
+  out[3] = blocks;
+  out[4] = RED_CHUNK;
+  if (tiles)
+    for (int b = 0; b < blocks; ++b)
+      gram_tile(t, b, &tiles[2 * b], &tiles[2 * b + 1]);
+  return 0;
 }

@@ -25,9 +25,16 @@ Kernels:
                        ``eval_partials_kernel`` of the scan placement.
   se_cov_matrix     -- the numeric factor of the GP covariance: the product
                        of closed-form SE double integrals (f64 or f32), the
-                       forward of every covariance build.
-  se_cov_grad       -- its gradient with respect to the lengthscales (the
-                       backward of the learning path's NLL); same source.
+                       forward of the covariance builds of two batches
+                       (improve, the ingest cross block).
+  se_cov_gram       -- the same of one batch against itself, each symmetric
+                       pair computed once (refit's NLL, ingest blocks,
+                       rebuilds); same source.
+  se_cov_derivs     -- either forward writing the lengthscale derivatives
+                       its backward reduces (counted apart; same source).
+  se_cov_grad       -- the gradient with respect to the lengthscales: the
+                       reduction of those derivatives against the incoming
+                       gradient (the backward of the learning path's NLL).
 
 Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches``, which ``launch_counts`` reads and
@@ -169,6 +176,8 @@ def _wrappers():
             "gp_batch_infer": gp_ops.gp_batch_infer,
             "range_mask_agg": rma_ops.range_mask_agg,
             "se_cov_matrix": se_ops.se_cov_matrix,
+            "se_cov_gram": se_ops.se_cov_gram,
+            "se_cov_derivs": se_ops.se_cov_derivs,
             "se_cov_grad": se_ops.se_cov_grad}
 
 

@@ -24,10 +24,17 @@ Inputs are made from a seed with numpy. Tolerances:
   - the scan placements launch the kernel of their route: K1 for a local
     block with no evaluator given, K4 (and no K1) for a block over a mesh;
   - K3 (``se_cov_matrix``), forward: f64 at rtol 1e-12 on ranges wider than
-    0.05, f32 at the reference's rtol 2e-5 / atol 1e-7; its gradient kernel
-    (``se_cov_grad``) against autograd of the plain version at rtol 1e-9
-    (another summation order); both bitwise across runs; a refit on the
-    card launches both.
+    0.05, f32 at the reference's rtol 2e-5 / atol 1e-7; its gradient (the
+    forward's saved derivatives reduced against the incoming gradient,
+    ``se_cov_grad``) against autograd of the plain version at rtol 1e-9
+    (another summation order); both bitwise across runs; the Gram kernel
+    (``se_cov_gram``) bitwise the general kernel on the same ranges, its
+    gradient bitwise the general one's; the saved derivatives within rtol
+    1e-12 of the plain ``se_cov_derivs_ref``; the kernels' antiderivative
+    bitwise even; the Gram plan of the built library equal to the
+    wrapper's; a refit on the card runs the Gram forward with derivatives
+    and the reduction on every step, and no forward writes derivatives
+    when ``ls`` needs no gradient.
 """
 import numpy as np
 import pytest
@@ -49,7 +56,7 @@ from repro_torch.kernels.range_mask_agg.ref import (  # noqa: E402
     range_mask_agg_ref)
 from repro_torch.kernels.se_covariance import ops as pt_se  # noqa: E402
 from repro_torch.kernels.se_covariance.ref import (  # noqa: E402
-    se_cov_grad_ref, se_cov_matrix_ref)
+    se_cov_derivs_ref, se_cov_grad_ref, se_cov_matrix_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -372,6 +379,103 @@ def test_cuda_se_cov_refuses_gradients_it_does_not_compute():
         pt_se.se_cov_matrix(*args)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,l", [(1, 3), (31, 1), (32, 3), (33, 5),
+                                 (100, 3), (257, 2), (70, 8), (40, 0)])
+def test_cuda_se_cov_gram_is_the_general_kernel_bitwise(n, l, dtype):
+    args = _se_args(n, n, l, seed=3 * n + l, dtype=dtype)
+    lo, hi, ls, norm = args[0], args[1], args[4], args[6]
+    before = launch_counts()
+    got = pt_se.se_cov_gram(lo, hi, ls, 1.7, norm)
+    again = pt_se.se_cov_gram(lo, hi, ls, 1.7, norm)
+    want = pt_se.se_cov_matrix(lo, hi, lo, hi, ls, 1.7, norm, norm)
+    after = launch_counts()
+    assert after["se_cov_gram"] == before["se_cov_gram"] + 2
+    assert after["se_cov_matrix"] == before["se_cov_matrix"] + 1
+    assert after["se_cov_derivs"] == before["se_cov_derivs"]
+    assert got.dtype == dtype and torch.equal(got, again)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 2000])
+def test_k3_library_plan_equals_the_wrappers(n):
+    plan = pt_se.se_cov_plan(n)
+    head, tiles = pt_se.se_cov_plan_of_library(n)
+    assert head == (plan.tile, plan.rows, plan.n_tiles, plan.blocks,
+                    plan.reduce_chunk)
+    assert tiles == [plan.tiles(b) for b in range(plan.blocks)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_antiderivative_is_bitwise_even(dtype):
+    """The premise of the Gram kernel: F(-u) == F(u) and dF(-u) == dF(u)
+    bit for bit in the kernels' own code, and erf odd, over 0, subnormals,
+    erf's branch points and |u/z| > 6."""
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    info = np.finfo(np_dt)
+    r = np.concatenate([
+        [0.0, info.smallest_subnormal, info.tiny, 0.84375, 1.0, 1.25,
+         2.857142857142857, 5.9, 6.0, 6.5, 27.0, 1e10],
+        np.logspace(np.log10(float(info.tiny)), 2, 4000),
+        np.linspace(0.0, 7.0, 70001)]).astype(np_dt)
+    r = np.concatenate([r, np.nextafter(r, np.inf).astype(np_dt),
+                        np.nextafter(r, -np.inf).astype(np_dt)])
+    for z in (0.3, 0.77, 1.5):
+        u = torch.as_tensor(np.abs(r) * np_dt(z), device="cuda")
+        f, df = pt_se.se_cov_probe(u, z, with_derivative=True)
+        fm, dfm = pt_se.se_cov_probe(-u, z, with_derivative=True)
+        assert torch.equal(f, fm) and torch.equal(df, dfm)
+        assert torch.equal(pt_se.se_cov_probe(u, z), f)
+        rr = u / torch.tensor(z, dtype=dtype, device="cuda")
+        assert torch.equal(torch.special.erf(-rr), -torch.special.erf(rr))
+
+
+@pytest.mark.parametrize("n_i,n_j,l", [(100, 30, 3), (33, 300, 2),
+                                       (64, 64, 5)])
+def test_cuda_se_cov_derivs_match_plain_version(n_i, n_j, l):
+    args = _se_args(n_i, n_j, l, seed=11 * n_i + l)
+    before = launch_counts()
+    k_mat, d = pt_se.se_cov_derivs(*args)
+    after = launch_counts()
+    assert after["se_cov_derivs"] == before["se_cov_derivs"] + 1
+    assert after["se_cov_matrix"] == before["se_cov_matrix"] + 1
+    assert torch.equal(k_mat, pt_se.se_cov_matrix(*args))
+    want_k, want_d = se_cov_derivs_ref(*args)
+    torch.testing.assert_close(k_mat, want_k, rtol=1e-12, atol=0.0)
+    torch.testing.assert_close(d, want_d, rtol=1e-12, atol=1e-300)
+    assert torch.equal(pt_se.se_cov_derivs(*args)[1], d)
+
+
+@pytest.mark.parametrize("n,l", [(1, 3), (33, 2), (300, 3), (97, 8)])
+def test_cuda_se_gram_gradient_is_the_general_gradient_bitwise(n, l):
+    args = _se_args(n, n, l, seed=5 * n + l)
+    lo, hi, ls, norm = args[0], args[1], args[4], args[6]
+    g_out = torch.as_tensor(np.random.default_rng(n).normal(size=(n, n)),
+                            device="cuda")
+    z = ls.clone().requires_grad_(True)
+    before = launch_counts()
+    k_mat = pt_se.se_cov_gram(lo, hi, z, 1.7, norm)
+    (via,) = torch.autograd.grad(k_mat, z, g_out)
+    after = launch_counts()
+    assert after["se_cov_gram"] == before["se_cov_gram"] + 1
+    assert after["se_cov_derivs"] == before["se_cov_derivs"] + 1
+    assert after["se_cov_grad"] == before["se_cov_grad"] + 1
+    # Writing the derivatives leaves the forward's bits alone.
+    assert torch.equal(k_mat.detach(), pt_se.se_cov_gram(lo, hi, ls, 1.7,
+                                                         norm))
+    general = pt_se.se_cov_grad(lo, hi, lo, hi, ls, 1.7, norm, norm, g_out)
+    assert torch.equal(via, general)
+    torch.testing.assert_close(
+        via, se_cov_grad_ref(lo, hi, lo, hi, ls, 1.7, norm, norm, g_out),
+        rtol=1e-9, atol=0.0)
+    # No derivatives without a gradient to take.
+    before = launch_counts()
+    with torch.no_grad():
+        pt_se.se_cov_gram(lo, hi, z, 1.7, norm)
+    pt_se.se_cov_matrix(lo, hi, lo, hi, ls, 1.7, norm, norm)
+    assert launch_counts()["se_cov_derivs"] == before["se_cov_derivs"]
+
+
 def test_refit_on_the_card_launches_both_k3_wrappers():
     """``VerdictEngine.refit`` on a small relation on the card runs every
     Adam step's covariance through K3's forward and its gradient."""
@@ -390,7 +494,10 @@ def test_refit_on_the_card_launches_both_k3_wrappers():
     before = launch_counts()
     eng.refit(steps=5)
     after = launch_counts()
-    assert after["se_cov_matrix"] - before["se_cov_matrix"] >= 5 * fits
+    # Every step's NLL builds a Gram matrix with derivatives, and its
+    # backward reduces them.
+    assert after["se_cov_gram"] - before["se_cov_gram"] >= 5 * fits
+    assert after["se_cov_derivs"] - before["se_cov_derivs"] >= 5 * fits
     assert after["se_cov_grad"] - before["se_cov_grad"] >= 5 * fits
     sick = {k: v["quarantine_reason"] for k, v in eng.ingest_stats().items()
             if v["quarantined"]}

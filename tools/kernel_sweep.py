@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Tiling variants of the masked-partials (K4) and GP-improve (K2) kernels.
+"""Tiling variants of the masked-partials (K4), GP-improve (K2) and
+SE-covariance Gram (K3) kernels.
 
-    python3 tools/kernel_sweep.py
+    python3 tools/kernel_sweep.py [k4] [k2] [k3]
 
 Needs one NVIDIA H100 and nvcc. Each variant is the checked-in source with
-some constants replaced, built into its own library under
+some constants or lines replaced, built into its own library under
 ``build/kernel_sweep/`` (one nvcc per variant, all started together) and
 called through its C entry point on the same inputs: K4 at T = 60,013 and
 Q in {128, 4096} on a random 0/1 mask, K2 at C = 2000 and Q in {8, 128} in
-float64 and float32. For each it prints the CUDA-event time (median of 20
-samples of 10 back-to-back calls), the profiler's device time per kernel,
-and whether the output is bitwise the checked-in source's.
+float64 and float32, K3's Gram forward at n = 2000, l = 3 in float64, with
+and without derivatives. For each it prints the CUDA-event time (median of
+20 samples of 10 back-to-back calls), the profiler's device time per
+kernel, and whether the output is bitwise the checked-in source's. With no
+argument every kernel is swept.
 """
 from __future__ import annotations
 
@@ -54,6 +57,30 @@ K2_VARIANTS = {
         NARROW: "using Narrow = Tiling<1, 2, 8, 1, 16, 2>;"},
     "Narrow as Wide (2 of 8 warps multiply at Q = 8)": {
         NARROW: "using Narrow = Tiling<4, 2, 2, 4, 16, 2>;"},
+}
+
+GRAM_BOUNDS = r"__launch_bounds__\(GT \* GR\)\nse_cov_gram\("
+K3_VARIANTS = {
+    "checked-in (32x32 tiles, 8 thread rows, transpose in shared memory)": {},
+    "4 thread rows (128 threads, 8 rows each)": {
+        r"constexpr int GR = 8;": "constexpr int GR = 4;"},
+    "16 thread rows (512 threads, 2 rows each)": {
+        r"constexpr int GR = 8;": "constexpr int GR = 16;"},
+    "64x64 tiles (512 threads, 8 rows each)": {
+        r"constexpr int GT = 32;": "constexpr int GT = 64;"},
+    "at least 3 blocks an SM": {
+        GRAM_BOUNDS: "__launch_bounds__(GT * GR, 3)\nse_cov_gram("},
+    "at least 4 blocks an SM": {
+        GRAM_BOUNDS: "__launch_bounds__(GT * GR, 4)\nse_cov_gram("},
+    "(b, a) tile written directly, no transpose": {
+        re.escape("tr[bl][al] = w;"):
+            "if (a < n && b < n) out[(size_t)b * n + a] = w;",
+        re.escape("for (int k = 0; k < L; ++k) tr[(k + 1) * GT + bl][al] "
+                  "= dv[k];"):
+            "for (int k = 0; k < L; ++k) if (a < n && b < n) "
+            "dout[k * plane + (size_t)b * n + a] = dv[k];",
+        re.escape("if (diag) return;  // uniform over the block"):
+            "return;"},
 }
 
 
@@ -208,6 +235,59 @@ def sweep_k2():
                 report(f"K2 Q={q} C={c} {str(dt)[6:]}", name, call, out, ref)
 
 
+def sweep_k3():
+    libs = build("se_covariance", K3_VARIANTS)
+    n, l, sigma2 = 2000, 3, 1.7
+    rng = np.random.default_rng(3)
+    lo = rng.uniform(0.0, 0.6, (n, l))
+    vals = (lo, lo + rng.uniform(0.05, 0.45, (n, l)),
+            rng.uniform(0.3, 1.5, l), rng.uniform(0.5, 2.0, n))
+    lo_t, hi_t, ls_t, norm_t = (torch.as_tensor(v, device="cuda")
+                                for v in vals)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((n, n), dtype=torch.float64, device="cuda")
+    dout = torch.empty((l, n, n), dtype=torch.float64, device="cuda")
+    general = libs[0].se_cov_launch_f64
+    general.argtypes = [P] * 7 + [ctypes.c_double] + [I] * 3 + [P] * 3
+    ptrs = [t.data_ptr() for t in (lo_t, hi_t)]
+
+    def call_general():
+        err = general(*ptrs, *ptrs, ls_t.data_ptr(), norm_t.data_ptr(),
+                      norm_t.data_ptr(), sigma2, n, n, l, out.data_ptr(),
+                      None, stream)
+        if err:
+            raise RuntimeError(f"se_cov_launch_f64 returned {err}")
+
+    call_general()
+    torch.cuda.synchronize()
+    ref_general = out.clone()
+    report(f"K3 n={n} l={l} float64", "general kernel, checked-in",
+           call_general, out, ref_general)
+    for derivs in (False, True):
+        ref = None
+        for lib, name in zip(libs, K3_VARIANTS):
+            fn = lib.se_cov_gram_launch_f64
+            fn.argtypes = [P] * 4 + [ctypes.c_double] + [I] * 2 + [P] * 3
+
+            def call(fn=fn):
+                err = fn(*ptrs, ls_t.data_ptr(), norm_t.data_ptr(), sigma2,
+                         n, l, out.data_ptr(),
+                         dout.data_ptr() if derivs else None, stream)
+                if err:
+                    raise RuntimeError(f"se_cov_gram_launch_f64 returned "
+                                       f"{err}")
+
+            call()
+            torch.cuda.synchronize()
+            got = torch.cat([out.reshape(-1), dout.reshape(-1)]) if derivs \
+                else out.clone()
+            ref = got.clone() if ref is None else ref
+            assert torch.equal(out, ref_general), name
+            report(f"K3 Gram n={n} l={l} float64"
+                   + (" with derivatives" if derivs else ""), name, call,
+                   got, ref)
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_sweep: needs a CUDA device", file=sys.stderr)
@@ -215,9 +295,11 @@ def main():
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())
+    sweeps = {"k4": sweep_k4, "k2": sweep_k2, "k3": sweep_k3}
+    chosen = sys.argv[1:] or list(sweeps)
     t0 = time.perf_counter()
-    sweep_k4()
-    sweep_k2()
+    for name in chosen:
+        sweeps[name]()
     log(f"sweep done in {time.perf_counter() - t0:.1f} s")
     return 0
 
