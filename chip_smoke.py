@@ -8,11 +8,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      under src/repro_torch/csrc (timed), TF32 off;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, with CUDA-event timings and bounds (the
+     fused scan's rows the same at Q = 128 and Q = 4096, and a floor from
+     the instructions ``cuobjdump -sass`` finds in its stage loop; the
      SE-covariance kernels included: the premise that their antiderivative
      is even bit for bit, the general and Gram forwards, the forward with
      derivatives and the lengthscale gradient reduced from them, and a
      bound from the FP64 instructions ``cuobjdump -sass`` finds in one
-     antiderivative);
+     antiderivative); then past the widths one launch takes: the fused
+     scan and masked partials at 12 measures, range-mask aggregation at 35
+     payload columns, the SE covariance at 12 numeric dims;
   3. the main path at a size users run: TPC-H SF1 lineitem cardinality
      (6,001,215 rows), capacity 2000, a 2000-query warm-up through
      ``execute_many`` and 200 queries served one by one through ``execute``;
@@ -30,7 +34,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      scan placement over every sample batch, against the fused scan;
   4. the slice against its plain path: a CUDA engine and a CPU engine on the
      same 600,000-row data must agree, before and after a short refit of
-     both (run last; phases 6 and 5 reuse phase 3's relation).
+     both, and again on a 600,000-row relation of 9 numeric dims and 9
+     measures (run last; phases 6 and 5 reuse phase 3's relation).
 The last two lines of standard output are the kernels' JSON record and the
 device record ``{"ok": true, "device": {...}}``.
 """
@@ -223,12 +228,13 @@ def phase_build():
     for name, out in logs.items():
         log(f"-- nvcc {name}:\n{out.strip()}")
     log(f"built {sorted(logs) or 'nothing (up to date)'} in {build_s:.2f} s")
-    # The kernels redesigned for Hopper (K4, K2, and K3 at the main path's
-    # l = 3 in f64): what ptxas gave each entry function (dynamic shared
-    # memory is set at launch: K4 24 KB a block at M = 2, K2 86 KB in f64
-    # and 43 KB in f32, the K3 Gram kernel's transpose 8.4 KB, 33.8 KB with
-    # derivatives at l = 3 in f64).
-    for src, keys in (("fused_masked_scan", ("mpa_",)),
+    # The kernels redesigned for Hopper (K1 at the main path's M = 2 with
+    # 32-bit category words, K4, K2, and K3 at the main path's l = 3 in
+    # f64): what ptxas gave each entry function (dynamic shared memory is
+    # set at launch: K1 45 KB a block at M = 2, 55 KB at 2 snippets a lane;
+    # K4 24 KB a block at M = 2, K2 86 KB in f64 and 43 KB in f32, the K3
+    # Gram kernel's transpose 8.4 KB, 33.8 KB with derivatives at l = 3).
+    for src, keys in (("fused_masked_scan", ("mpa_", "fms_partials<2, 1,")),
                       ("gp_batch_infer", ("gp_",)),
                       ("se_covariance", ("<double, 3",))):
         for fn, what in ptxas_summary(logs.get(src, "")).items():
@@ -242,14 +248,16 @@ def phase_build():
 
 
 # ------------------------------------------------------------------ phase 2
-def _fused_snippets(rel, seed, n_queries, q_n):
-    """The first ``q_n`` distinct snippets of a tpch workload (host)."""
+def _fused_snippets(rel, seed, n_queries, q_n, workload=None):
+    """The first ``q_n`` distinct snippets of a workload (host): a tpch
+    workload unless ``workload`` (a function of seed, schema and count)
+    names another."""
     from repro_torch.aqp import queries as Q
     from repro_torch.aqp.plan import SnippetInterner
     from repro_torch.aqp.workload import tpch_workload
 
     interner = SnippetInterner(rel.schema)
-    for q in tpch_workload(seed, rel.schema, n_queries):
+    for q in (workload or tpch_workload)(seed, rel.schema, n_queries):
         groups = [(g,) for g in range(3)] if q.groupby else [()]
         interner.intern(Q.decompose(rel.schema, q, groups).snippets)
     fused = interner.fused()
@@ -266,14 +274,17 @@ def check_k1(rel, seed):
     from repro_torch.kernels.fused_masked_scan.ref import fused_masked_scan_ref
 
     log("-- K1 fused_masked_scan (f64): count and scanned exact, "
-        "sums/sumsq rtol 1e-11, repeat bitwise")
+        "sums/sumsq rtol 1e-11, repeat bitwise, a snippet's row the same at "
+        "Q = 128 and Q = 4096")
     dev = rel.device
     rows = np.random.default_rng(seed).permutation(rel.cardinality)[:60_000]
     blk = rel.take(rows)
     x, codes, meas = blk.num_normalized, blk.cat, blk.measures
     t_n, l = x.shape
     c, m = codes.shape[1], meas.shape[1]
-    records = {}
+    clock = max_sm_clock_hz()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    records, outs, per_tuple = {}, {}, {}
     for q_n in (128, 4096):
         s = _fused_snippets(rel, seed, 2000, q_n).to(dev)
         args = (x, codes, meas, s.lo, s.hi, s.cat)
@@ -288,8 +299,16 @@ def check_k1(rel, seed):
         pp = eval_partials(x, codes, meas, s)
         assert torch.equal(kp.scanned, pp.scanned) and torch.equal(
             kp.count, pp.count)
+        outs[q_n] = got
         err = float((got - want).abs().max())
         v = s.cat.shape[2]
+        plan = fms.fused_scan_plan(t_n, q_n, m, l, c, v)
+        log(f"  fused_masked_scan Q={q_n}: path {plan.path}, {plan.spl} "
+            f"snippets a lane, {plan.blocks} blocks of "
+            f"{plan.tile_q // (32 * plan.spl)} warps, {plan.smem} B of shared "
+            f"memory a block, {plan.rows} tuples a ring stage")
+        if plan.spl not in per_tuple:
+            per_tuple[plan.spl] = k1_sass_count(plan.spl, plan.rows)[0]
         ms = time_ms(lambda: fms.fused_masked_scan(*args), inner=10)
         plain = time_ms(lambda: fused_masked_scan_ref(
             x, codes, None, meas, s.lo, s.hi, s.cat), reps=20 if q_n <= 128
@@ -299,8 +318,26 @@ def check_k1(rel, seed):
         n_ops = t_n * q_n * (2 * l + c + 2 * (2 * m + 1))
         records[q_n] = report("fused_masked_scan", f"T={t_n} Q={q_n}", ms,
                               plain, n_bytes, n_ops, "float64", err)
-        records[q_n]["device_ms"] = device_ms_per_call(
+        dev_ms = device_ms_per_call(
             f"fused_masked_scan Q={q_n}", lambda: fms.fused_masked_scan(*args))
+        records[q_n]["device_ms"] = dev_ms
+        # The instruction floor: the stage loop's instructions a tuple, for
+        # every warp with a live snippet, over 4 schedulers an SM issuing
+        # one instruction a clock each.
+        floor, each = None, per_tuple[plan.spl]
+        if each is not None:
+            warps = -(-q_n // (32 * plan.spl))  # live warps a chunk
+            floor = each * t_n * warps / (n_sm * 4 * clock) * 1e3
+            log(f"  fused_masked_scan Q={q_n}: instruction floor {floor:.6f} "
+                f"ms ({each:.3f} instructions a tuple a warp x {t_n} tuples "
+                f"x {warps} warps a chunk / ({n_sm} SMs x 4 schedulers x "
+                f"{clock / 1e9:.3f} GHz); {floor / ms:.4f} of the CUDA-event "
+                "time" + (f", {floor / dev_ms:.4f} of the device time"
+                          if dev_ms else ""))
+        records[q_n]["instruction_floor_ms"] = floor
+    assert torch.equal(outs[4096][:128], outs[128]), (
+        "K1's rows differ between Q = 128 and Q = 4096")
+    log("  rows 0..127 of the Q = 4096 launch are bitwise the Q = 128 launch")
     # Boundary: x exactly at lo, inside and outside the 1e-12 widening.
     sch = rel.schema
     snip = make_snippets(sch, agg=[0], measure=[0],
@@ -436,8 +473,9 @@ def check_k4(rel, seed):
                             dtype=torch.float64, device=rel.device)
         entry, stream = fms._entry("mpa_launch"), torch.cuda.current_stream()
         entry_ms = time_ms(lambda: entry(
-            mask.data_ptr(), meas.data_ptr(), t_n, q_n, m, fms.FMS_CHUNK_T,
-            scr_e.data_ptr(), out_e.data_ptr(), stream.cuda_stream), inner=10)
+            mask.data_ptr(), meas.data_ptr(), m, t_n, q_n, m, 0, m,
+            fms.FMS_CHUNK_T, scr_e.data_ptr(), out_e.data_ptr(),
+            stream.cuda_stream), inner=10)
         assert torch.equal(out_e, got), "K4's entry point differs"
         records[q_n]["entry_ms"] = entry_ms
         log(f"  masked_partials Q={q_n}: entry point alone {entry_ms:.6f} ms "
@@ -492,6 +530,241 @@ def check_k5(rel, seed):
     log("  library_ms is null for range_mask_agg: no single PyTorch call "
         "computes range compares times a mask folded against a payload")
     return rec
+
+
+WIDE_M = 12  # measures of phase 2's wide K1 / K4 shape (two launches)
+WIDE_P = 35  # payload columns of the wide K5 shape (three launches)
+WIDE_L = 12  # numeric dims of the wide K3 shapes (the kernels for any l)
+WIDE_REL = dict(n_num=9, n_measures=9)  # phase 4's wide relation
+
+
+def check_wide(rel, seed):
+    """Phase 2 past the widths one launch takes: K1 and K4 at 12 measures,
+    K1's kernel for any width on phase 4's wide relation, K5 at 35 payload
+    columns, K3 at l = 12, at the main path's T and Q."""
+    import torch
+    from repro_torch.kernels.fused_masked_scan import ops as fms
+    from repro_torch.kernels.fused_masked_scan.ref import (
+        fused_masked_scan_ref, masked_partials_ref)
+    from repro_torch.aqp.executor import predicate_mask
+    from repro_torch.kernels.range_mask_agg import ops as rma
+    from repro_torch.kernels.range_mask_agg.ref import range_mask_agg_ref
+
+    log(f"-- wide shapes: K1 and K4 at M={WIDE_M} (count exact, rtol 1e-11, "
+        "K4 bitwise K1, every measure's columns and the count bitwise the "
+        f"kernels on that measure alone), K5 at P={WIDE_P} (rtol 1e-5, "
+        f"every column bitwise the kernel on it alone), K3 at l={WIDE_L} "
+        "under its three bitwise contracts")
+    dev = rel.device
+    rng = np.random.default_rng(seed + 21)
+    rows = rng.permutation(rel.cardinality)[:60_000]
+    blk = rel.take(rows)
+    x, codes = blk.num_normalized, blk.cat
+    t_n, l = x.shape
+    c = codes.shape[1]
+    meas = torch.as_tensor(rng.normal(1.0, 2.0, (t_n, WIDE_M)), device=dev)
+    s = _fused_snippets(rel, seed, 2000, 128).to(dev)
+    q_n, v = 128, s.cat.shape[2]
+    args = (x, codes, meas, s.lo, s.hi, s.cat)
+    got = fms.fused_masked_scan(*args)
+    want = fused_masked_scan_ref(x, codes, None, meas, s.lo, s.hi, s.cat)
+    mask = predicate_mask(x, codes, s)
+    k4 = fms.masked_partials(mask, meas)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fms.fused_masked_scan(*args))
+    assert torch.equal(got[:, -1], want[:, -1])
+    assert torch.allclose(got, want, rtol=1e-11, atol=0.0)
+    assert torch.equal(k4, got), "K4 at M=12 is not K1's bits"
+    for j in range(WIDE_M):
+        one = meas[:, j:j + 1].contiguous()
+        alone = fms.fused_masked_scan(x, codes, one, s.lo, s.hi, s.cat)
+        cols = [j, WIDE_M + j, 2 * WIDE_M]
+        assert torch.equal(got[:, cols], alone), f"K1 measure {j}"
+        assert torch.equal(fms.masked_partials(mask, one), alone), (
+            f"K4 measure {j}")
+    log(f"  K1 and K4 at M={WIDE_M}: {len(fms.measure_groups(WIDE_M))} "
+        "launches each; K4 bitwise K1; every measure column and the count "
+        "bitwise the kernels on that measure alone")
+    records = {}
+    p = 2 * WIDE_M + 1
+    records["k1"] = report(
+        "fused_masked_scan", f"T={t_n} Q={q_n} M={WIDE_M}",
+        time_ms(lambda: fms.fused_masked_scan(*args), inner=10),
+        time_ms(lambda: fused_masked_scan_ref(x, codes, None, meas, s.lo,
+                                              s.hi, s.cat), reps=10),
+        t_n * (8 * l + 4 * c + 8 * WIDE_M) + q_n * (16 * l + c * v)
+        + q_n * p * 8, t_n * q_n * (2 * l + c + 2 * p), "float64",
+        float((got - want).abs().max()))
+    records["k1"]["device_ms"] = device_ms_per_call(
+        f"fused_masked_scan M={WIDE_M}", lambda: fms.fused_masked_scan(*args))
+    payload = torch.cat([meas, meas * meas, meas.new_ones((t_n, 1))], 1)
+    records["k4"] = report(
+        "masked_partials", f"T={t_n} Q={q_n} M={WIDE_M}",
+        time_ms(lambda: fms.masked_partials(mask, meas), inner=10),
+        time_ms(lambda: masked_partials_ref(mask, meas), reps=10),
+        8 * (t_n * q_n + t_n * WIDE_M + q_n * p), 2 * t_n * q_n * p,
+        "float64", float((k4 - want).abs().max()),
+        library_ms=time_ms(lambda: mask.T @ payload, inner=10))
+    records["k4"]["device_ms"] = device_ms_per_call(
+        f"masked_partials M={WIDE_M}", lambda: fms.masked_partials(mask, meas))
+    del mask
+    records["k1_any"] = check_k1_any(seed, dev)
+    # K5 at 35 payload columns: [m, m^2, 1] of 17 measures, in f32.
+    f32 = torch.float32
+    m17 = meas[:, :1].repeat(1, 17) + torch.arange(17, device=dev)
+    pay = torch.cat([m17, m17 * m17, m17.new_ones((t_n, 1))], 1).to(f32)
+    assert pay.shape[1] == WIDE_P
+    extra = rma.categorical_premask(codes, s.cat)
+    kargs = (x.to(f32), pay, s.lo.to(f32), s.hi.to(f32), extra)
+    k5 = rma.range_mask_agg(*kargs)
+    k5_want = range_mask_agg_ref(*kargs)
+    torch.cuda.synchronize()
+    assert torch.equal(k5, rma.range_mask_agg(*kargs))
+    assert torch.equal(k5[:, -1], k5_want[:, -1])
+    assert torch.allclose(k5, k5_want, rtol=1e-5, atol=1e-5)
+    for j in range(WIDE_P):
+        alone = rma.range_mask_agg(kargs[0], pay[:, j:j + 1].contiguous(),
+                                   *kargs[2:])
+        assert torch.equal(k5[:, j:j + 1], alone), f"K5 column {j}"
+    log(f"  K5 at P={WIDE_P}: {len(rma.payload_groups(WIDE_P))} launches; "
+        "every column bitwise the kernel on that column alone")
+    records["k5"] = report(
+        "range_mask_agg", f"T={t_n} Q={q_n} P={WIDE_P}",
+        time_ms(lambda: rma.range_mask_agg(*kargs), inner=10),
+        time_ms(lambda: range_mask_agg_ref(*kargs), reps=10),
+        4 * (t_n * l + t_n * WIDE_P + 2 * q_n * l + t_n * q_n
+             + q_n * WIDE_P), t_n * q_n * (2 * l + 2 * WIDE_P), "float32",
+        float((k5 - k5_want).abs().max()))
+    records["k5"]["device_ms"] = device_ms_per_call(
+        f"range_mask_agg P={WIDE_P}", lambda: rma.range_mask_agg(*kargs))
+    records.update(check_k3_wide(seed, dev))
+    return records
+
+
+def check_k1_any(seed, dev):
+    """K1's kernel for any width (``fms_partials_any``) at the shape phase 4's
+    wide relation gives it: a 60,000-tuple block of that relation (9 numeric
+    dims, 9 measures: two launches, over 8 measures and 1) and 128 snippets
+    of its warm-up workload. Count exact, rtol 1e-11 against the plain
+    version, bitwise on a repeat, K4 bitwise K1."""
+    import torch
+    from repro_torch.aqp.executor import predicate_mask
+    from repro_torch.aqp.workload import make_relation, make_workload
+    from repro_torch.kernels.fused_masked_scan import ops as fms
+    from repro_torch.kernels.fused_masked_scan.ref import fused_masked_scan_ref
+
+    wrel = make_relation(seed + 5, 600_000, **WIDE_REL)
+    rows = np.random.default_rng(seed + 24).permutation(wrel.cardinality)
+    blk = wrel.take(rows[:60_000])
+    x, codes, meas = blk.num_normalized, blk.cat, blk.measures
+    t_n, l = x.shape
+    c, m = codes.shape[1], meas.shape[1]
+    s = _fused_snippets(wrel, seed + 6, 200, 128, make_workload).to(dev)
+    q_n, v = 128, s.cat.shape[2]
+    paths = {fms.fused_scan_plan(t_n, q_n, count, l, c, v).path
+             for _, count in fms.measure_groups(m)}
+    assert paths == {0}, f"the wide block takes K1's paths {paths}"
+    args = (x, codes, meas, s.lo, s.hi, s.cat)
+    got = fms.fused_masked_scan(*args)
+    want = fused_masked_scan_ref(x, codes, None, meas, s.lo, s.hi, s.cat)
+    k4 = fms.masked_partials(predicate_mask(x, codes, s), meas)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fms.fused_masked_scan(*args)), (
+        "K1 for any width is not bitwise across runs")
+    assert torch.equal(got[:, -1], want[:, -1]), "K1 for any width: count"
+    assert float(got[:, -1].sum()) > 0
+    assert torch.allclose(got, want, rtol=1e-11, atol=0.0), float(
+        ((got - want).abs() / want.abs().clamp(min=1e-300)).max())
+    assert torch.equal(k4, got), "K4 on the wide block is not K1's bits"
+    log(f"  K1 for any width (L={l}, C={c}, V={v}, M={m}: "
+        f"{len(fms.measure_groups(m))} launches of fms_partials_any): count "
+        "exact, rtol 1e-11, bitwise on a repeat, K4 bitwise K1")
+    p = 2 * m + 1
+    rec = report(
+        "fms_partials_any", f"T={t_n} Q={q_n} L={l} M={m}",
+        time_ms(lambda: fms.fused_masked_scan(*args), inner=10),
+        time_ms(lambda: fused_masked_scan_ref(x, codes, None, meas, s.lo,
+                                              s.hi, s.cat), reps=10),
+        t_n * (8 * l + 4 * c + 8 * m) + q_n * (16 * l + c * v) + q_n * p * 8,
+        t_n * q_n * (2 * l + c + 2 * p), "float64",
+        float((got - want).abs().max()))
+    rec["device_ms"] = device_ms_per_call(
+        f"fms_partials_any L={l} M={m}", lambda: fms.fused_masked_scan(*args))
+    return rec
+
+
+def check_k3_wide(seed, dev):
+    """K3 at l = 12 (the kernels for any l): the general forward at
+    improve's shape, bitwise the plain version's per-dimension integrals in
+    the kernels' order; the Gram forward at 2000 x 2000, bitwise the general
+    kernel; its derivatives bitwise se_cov_derivs_ref; the gradient against
+    autograd of the plain version (rtol 1e-9), Gram route bitwise general."""
+    import torch
+    from repro_torch.kernels.se_covariance import ops as se
+    from repro_torch.kernels.se_covariance.ref import (se_cov_derivs_ref,
+                                                       se_cov_grad_ref,
+                                                       se_cov_matrix_ref)
+
+    l, sigma2, n = WIDE_L, 1.7, SYNOPSIS_C
+    rng = np.random.default_rng(seed + 23)
+    ls = torch.as_tensor(rng.uniform(0.3, 1.5, l), device=dev)
+    lo_i, hi_i = (torch.as_tensor(a, device=dev) for a in _se_inputs(rng, 128,
+                                                                      l))
+    lo, hi = (torch.as_tensor(a, device=dev) for a in _se_inputs(rng, n, l))
+    ni = torch.as_tensor(rng.uniform(0.5, 2.0, 128), device=dev)
+    nj = torch.as_tensor(rng.uniform(0.5, 2.0, n), device=dev)
+    gen = (lo_i, hi_i, lo, hi, ls, sigma2, ni, nj)
+    got = se.se_cov_matrix(*gen)
+    want = se_cov_matrix_ref(*gen)
+    torch.cuda.synchronize()
+    assert torch.equal(got, se.se_cov_matrix(*gen))
+    assert torch.allclose(got, want, rtol=1e-12, atol=0.0), _rel(got, want)
+    assert torch.equal(got, _k3_seq(gen, l)), (
+        "K3 at l=12 differs from the plain per-dimension integrals")
+    records = {}
+    records["k3_general"] = report(
+        "se_cov_matrix", f"128x{n} l={l} float64",
+        time_ms(lambda: se.se_cov_matrix(*gen), inner=10),
+        time_ms(lambda: se_cov_matrix_ref(*gen), reps=10),
+        8 * (2 * (128 + n) * l + l + 128 + n + 1 + 128 * n),
+        _k3_ops(128, n, l)["general"], "float64_simt",
+        float((got - want).abs().max()))
+    records["k3_general"]["device_ms"] = device_ms_per_call(
+        f"se_cov_matrix 128x{n} l={l}", lambda: se.se_cov_matrix(*gen))
+    full = (lo, hi, lo, hi, ls, sigma2, nj, nj)
+    gram = se.se_cov_gram(lo, hi, ls, sigma2, nj)
+    assert torch.equal(gram, se.se_cov_matrix(*full)), (
+        "K3 Gram at l=12 is not the general kernel's bits")
+    k_g, d_g = se.se_cov_gram_derivs(lo, hi, ls, sigma2, nj)
+    _, want_d = se_cov_derivs_ref(*full)
+    torch.cuda.synchronize()
+    assert torch.equal(k_g, gram)
+    assert torch.equal(d_g, want_d), (
+        f"K3 D at l=12 differs from se_cov_derivs_ref in "
+        f"{int((d_g != want_d).sum())} of {d_g.numel()}")
+    del want_d
+    records["k3_derivs"] = report(
+        "se_cov_derivs", f"{n}x{n} l={l} float64 Gram",
+        time_ms(lambda: se.se_cov_gram_derivs(lo, hi, ls, sigma2, nj),
+                inner=3),
+        time_ms(lambda: se_cov_derivs_ref(*full), reps=3),
+        8 * (2 * n * l + l + n + 1 + (1 + l) * n * n), _k3_ops(n, n, l)[
+            "derivs"], "float64_simt", 0.0)
+    records["k3_derivs"]["device_ms"] = device_ms_per_call(
+        f"se_cov_derivs {n}x{n} l={l}",
+        lambda: se.se_cov_gram_derivs(lo, hi, ls, sigma2, nj), n=3)
+    g_out = torch.as_tensor(rng.normal(size=(n, n)), device=dev)
+    z = ls.clone().requires_grad_(True)
+    (via,) = torch.autograd.grad(se.se_cov_gram(lo, hi, z, sigma2, nj), z,
+                                 g_out)
+    want_g = se_cov_grad_ref(*full, g_out)
+    assert torch.equal(via, se.se_cov_grad(*full, g_out))
+    assert torch.allclose(via, want_g, rtol=1e-9, atol=0.0), (via, want_g)
+    log(f"  K3 at l={l}: general 128x{n} bitwise the plain per-dimension "
+        "integrals in the kernels' order; Gram bitwise general; D bitwise "
+        f"se_cov_derivs_ref; gradient within {_rel(via, want_g):.3e} of "
+        "autograd of the plain version, Gram route bitwise general")
+    return records
 
 
 def _se_inputs(rng, n, l, equality=False):
@@ -669,6 +942,90 @@ def k3_sass_counts():
             f"included); by opcode {ops}")
         counts.append(None if fewest is None else fewest - 3)
     return tuple(counts)
+
+
+def sass_loop_body(lines):
+    """The loop with the most instructions in one kernel's ``cuobjdump
+    -sass`` listing: (instructions from a backward branch's target to the
+    branch, NOPs left out; {opcode: count}; inner backward branches in it),
+    or (None, {}, 0) where the listing has no backward branch."""
+    import re
+
+    ins, at = [], {}
+    for line in lines:
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        at[addr] = len(ins)
+        tgt = re.search(r"\b0x([0-9a-f]+)\s*$", m.group(4))
+        ins.append((addr, m.group(3).split(".")[0],
+                    int(tgt.group(1), 16) if tgt else None))
+    loops = [(at[t], i) for i, (addr, op, t) in enumerate(ins)
+             if op == "BRA" and t is not None and t < addr and t in at]
+    if not loops:
+        return None, {}, 0
+    lo, hi = max(loops, key=lambda ab: ab[1] - ab[0])
+    ops = {}
+    for _, op, _ in ins[lo:hi + 1]:
+        if op != "NOP":
+            ops[op] = ops.get(op, 0) + 1
+    inner = sum(1 for a, b in loops if lo <= a and b < hi)
+    return sum(ops.values()), ops, inner
+
+
+def k1_sass_count(spl, rows):
+    """Instructions a warp issues per staged tuple on K1's main path: the
+    stage loop of ``fms_partials<2, 1, spl>`` (two measures, 32-bit
+    category words, ``spl`` snippets a lane) in the built library, over the
+    ``rows`` tuples a stage it folds (ring upkeep included), and that loop's
+    opcodes. (None, {}) where cuobjdump or the parse fails: the instruction
+    floor is then not measured."""
+    import re
+
+    from repro_torch import kernels
+
+    try:
+        tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+        text = subprocess.run(
+            [tool, "-sass", str(kernels.library_path("fused_masked_scan"))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        log(f"  cuobjdump -sass failed ({e}): K1's floor not measured")
+        return None, {}
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    what = f"fms_partials<2, 1, {spl}>"
+    name = next((k for k in funcs if f"fms_partialsILi2ELi1ELi{spl}EE" in k),
+                None)
+    if name is None:
+        log(f"  SASS: no {what} in the library")
+        return None, {}
+    count, ops, inner = sass_loop_body(funcs[name])
+    if count is None or inner:
+        log(f"  SASS of {what}: no single stage loop ({inner} inner loops):"
+            " K1's floor not measured")
+        return None, ops
+    per_tuple = count / rows
+    log(f"  SASS of {what}: its stage loop is {count} "
+        f"instructions for {rows} tuples, {per_tuple:.3f} a tuple "
+        f"per warp; by opcode {dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
+    return per_tuple, ops
+
+
+def max_sm_clock_hz():
+    """The card's largest SM clock (nvidia-smi ``clocks.max.sm``), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True).stdout
+    return float(out.split()[0]) * 1e6
 
 
 def _k3_premise(dev):
@@ -1815,6 +2172,61 @@ def against_plain(seed):
     return out
 
 
+def against_plain_wide(seed):
+    """Phase 4 on a relation past the widths one launch takes: 9 numeric
+    dimensions and 9 measures, 600,000 rows. A CUDA engine (K1 for any
+    width over two measure groups, K3 for any l) and a CPU engine answer
+    200 warm-up and 20 served queries; held to phase 4's rules."""
+    import torch
+    from repro_torch.aqp.workload import make_relation, make_workload
+    from repro_torch.core.engine import EngineConfig, VerdictEngine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    log(f"== phase 4, wide: CUDA engine against the CPU engine, 600,000 rows,"
+        f" {WIDE_REL['n_num']} numeric dims and {WIDE_REL['n_measures']} "
+        "measures")
+    cfg = EngineConfig(sample_rate=0.1, n_batches=10, capacity=2000,
+                       seed=seed)
+    rels = {None: make_relation(seed + 5, 600_000, **WIDE_REL),
+            "cpu": make_relation(seed + 5, 600_000, **WIDE_REL, device="cpu")}
+    schema = rels["cpu"].schema
+    warm = make_workload(seed + 6, schema, 200)
+    test = make_workload(seed + 7, schema, 20)
+    target = 0.02
+    results, launches = {}, None
+    for device in (None, "cpu"):
+        eng = VerdictEngine(rels[device], cfg, device=device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.execute_many(warm)
+        results[device] = [eng.execute(q, target_rel_error=target)
+                           for q in test]
+        eng.drain()
+        counts = launch_counts()
+        _assert_healthy(eng)
+        log(f"{device or 'cuda'} engine: {time.perf_counter() - t0:.2f} s, "
+            f"launches {counts}")
+        if device is None:
+            for k in ("fused_masked_scan", "gp_batch_infer", "se_cov_matrix"):
+                assert counts[k] > 0, counts
+            launches = counts
+        else:
+            assert all(v == 0 for v in counts.values()), counts
+        del eng
+    torch.cuda.synchronize()
+    d = _compare(results[None], results["cpu"], cfg, target)
+    _log_compare("wide: CUDA vs CPU", d)
+    assert d["n"] > 0
+    assert d["avg"] <= 1e-8, d["avg"]
+    assert d["other_ci"] <= 0.1, d["other_ci"]
+    allowed = {"batches_used": FLIP_FACTOR * d["stop"],
+               "accepted": FLIP_FACTOR * d["theta"]}
+    bad = [f for f in d["flips"] if f[4] > allowed[f[1]]]
+    assert not bad, f"flips outside {allowed} of their threshold: {bad}"
+    return {"avg_rel": d["avg"], "count_sum_of_half_width": d["other_ci"],
+            "flips": len(d["flips"]), "queries_compared": d["n"]}, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1841,6 +2253,7 @@ def main():
     k4 = check_k4(rel, args.seed)
     k5 = check_k5(rel, args.seed)
     k3 = check_k3(args.seed, rel.device)
+    wide = check_wide(rel, args.seed)
     del rel
     if args.kernels_only:
         log(f"kernels-only run done in {time.perf_counter() - t_start:.1f} s")
@@ -1853,11 +2266,24 @@ def main():
     k5_launches = k5_on_the_scan_placement(rel, cfg, args.seed)
     del rel
     worst = against_plain(args.seed)
+    worst_wide, wide_counts = against_plain_wide(args.seed)
+
+    def at(shape, rec):  # a kernel's record at a wide shape
+        return {"shape": shape, **rec}
+
     kernels = [
         dict(name="fused_masked_scan", route="cuda",
              source="src/repro_torch/csrc/fused_masked_scan.cu",
              replaces=K1_REPLACES, launches=counts["fused_masked_scan"],
-             shape="T=60000 Q=128 f64", **k1[128]),
+             shape="T=60000 Q=128 f64", **k1[128],
+             wide=at(f"T=60000 Q=128 M={WIDE_M} f64", wide["k1"])),
+        # Every K1 launch of phase 4's wide engine (L = 9) takes this kernel.
+        dict(name="fms_partials_any", route="cuda",
+             source="src/repro_torch/csrc/fused_masked_scan.cu",
+             replaces=K1_REPLACES,
+             launches=wide_counts["fused_masked_scan"],
+             shape=f"T=60000 Q=128 L={WIDE_REL['n_num']} "
+                   f"M={WIDE_REL['n_measures']} f64", **wide["k1_any"]),
         dict(name="gp_batch_infer", route="cuda",
              source="src/repro_torch/csrc/gp_batch_infer.cu",
              replaces=K2_REPLACES, launches=counts["gp_batch_infer"],
@@ -1865,16 +2291,19 @@ def main():
         dict(name="masked_partials", route="cuda",
              source="src/repro_torch/csrc/fused_masked_scan.cu",
              replaces=K4_REPLACES, launches=mesh_counts["masked_partials"],
-             shape=f"T={SF1_BATCH_T} Q=128 f64", **k4[128]),
+             shape=f"T={SF1_BATCH_T} Q=128 f64", **k4[128],
+             wide=at(f"T=60000 Q=128 M={WIDE_M} f64", wide["k4"])),
         dict(name="range_mask_agg", route="cuda",
              source="src/repro_torch/csrc/range_mask_agg.cu",
              replaces=K5_REPLACES, launches=k5_launches,
-             shape=f"T={SF1_BATCH_T} Q=128 f32", **k5),
+             shape=f"T={SF1_BATCH_T} Q=128 f32", **k5,
+             wide=at(f"T=60000 Q=128 P={WIDE_P} f32", wide["k5"])),
         dict(name="se_cov_matrix", route="cuda",
              source="src/repro_torch/csrc/se_covariance.cu",
              replaces=K3_REPLACES, launches=counts["se_cov_matrix"],
              shape=f"128x{SYNOPSIS_C} l=3 f64",
-             **k3[("general", 128, "float64")]),
+             **k3[("general", 128, "float64")],
+             wide=at(f"128x{SYNOPSIS_C} l={WIDE_L} f64", wide["k3_general"])),
         dict(name="se_cov_gram", route="cuda",
              source="src/repro_torch/csrc/se_covariance.cu",
              replaces=K3_REPLACES, launches=counts["se_cov_gram"],
@@ -1884,7 +2313,9 @@ def main():
              source="src/repro_torch/csrc/se_covariance.cu",
              replaces=K3_REPLACES, launches=refit_counts["se_cov_derivs"],
              shape=f"{SYNOPSIS_C}x{SYNOPSIS_C} l=3 f64 Gram",
-             **k3["derivs"]),
+             **k3["derivs"],
+             wide=at(f"{SYNOPSIS_C}x{SYNOPSIS_C} l={WIDE_L} f64 Gram",
+                     wide["k3_derivs"])),
         dict(name="se_cov_grad", route="cuda",
              source="src/repro_torch/csrc/se_covariance.cu",
              replaces=K3_REPLACES, launches=refit_counts["se_cov_grad"],
@@ -1894,13 +2325,15 @@ def main():
         "improve: no single PyTorch call computes either; masked_partials' "
         "is one cuBLAS DGEMM, mask.T @ [m, m^2, 1]")
     log("launches: K1, K2 and K3's general and Gram forwards in phase 3's "
-        "serve stream; K4 in phase 5's mesh session; K5 over the SF1 "
+        "serve stream; K1's kernel for any width in phase 4's wide CUDA "
+        "engine; K4 in phase 5's mesh session; K5 over the SF1 "
         "batches; K3's forward with derivatives and its reduction in phase "
         f"6's refit (which also ran {refit_counts['se_cov_gram']} Gram "
         "forwards, derivatives included)")
     log(f"end to end: phase 3 {json.dumps(e2e)}; phase 6 {json.dumps(e2e6)}; "
         f"phase 5 {json.dumps(e2e5)};"
-        f" CUDA vs CPU {json.dumps(worst)};"
+        f" CUDA vs CPU {json.dumps(worst)}; wide CUDA vs CPU "
+        f"{json.dumps(worst_wide)};"
         f" total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 // Fused masked scan for Hopper (sm_90a): the scan of every sample batch.
-// This file holds K1 (fms_partials, entry point fms_launch) and K4
-// (mpa_partials and mpa_fold, entry point mpa_launch, further down), which
-// share the chunked fixed-order fold: K4 keeps K1's chunks, per-tuple
-// update and chunk order, so it gives K1's bits on the same block.
+// This file holds K1 (fms_partials and fms_partials_any, entry point
+// fms_launch) and K4 (mpa_partials, entry point mpa_launch, further down).
+// Both fold in one fixed order and share the second pass (mpa_fold), so K4
+// gives K1's bits on the same block.
 //
 // Replaces the TPU kernel src/repro/kernels/fused_masked_scan/kernel.py
 // (_fms_kernel, launched by fused_masked_scan_pallas). For each snippet q
@@ -13,119 +13,377 @@
 //                           * AND_k member(q, k, codes[t,k])
 //     payload[t] = [m_0 .. m_{M-1}, m_0^2 .. m_{M-1}^2, 1]
 //
-// What bounds it on the H100: per (tuple, snippet) pair it does 2L compares,
-// C table lookups and 2M+1 f64 multiply-adds, and it reads each tuple once:
-// ~T*(8L + 4C + 8M) bytes (3.1 MB, ~1 us, for a 60,000-tuple batch). The
-// f64 operations bound it at every snippet count the engine uses (~4 us at
-// Q = 128, ~0.14 ms at Q = 4096); at Q = 128 the launch dominates.
+// The fold order, K1's and K4's, is not up for trade. The tuples are cut
+// into chunks of `chunk` (256). For each snippet and column the tuples of a
+// chunk are folded in ascending order from 0.0 with the mask value w:
+// acc_s = fma(w, m, acc_s), acc_q = fma(w, m*m rounded, acc_q), acc_n += w.
+// The second pass sums the chunks in ascending order from 0.0. The order
+// depends on T alone: every run gives the same bits, a snippet's row does
+// not depend on Q or on which snippets ride along, and a measure's columns
+// do not depend on which measures ride along. A launch folds at most
+// MAX_M = 8 measures (the kernels are templated on M); the wrapper folds
+// more in launches over groups of at most 8 consecutive measures, each
+// reading its group in place (the measures pointer at the group's first
+// column, the full row stride) and writing its own columns of the output.
+// No float atomics anywhere.
 //
-// Design:
-//  * The mask is computed on the fly and never written to memory. One thread
-//    owns one snippet; a block owns SNIPPETS_PER_BLOCK snippets and one fixed
-//    chunk of tuples. Tuples are staged through shared memory tile by tile,
-//    and every thread of a warp reads the same tuple (a broadcast).
-//  * Categorical membership is a lookup in a per-block (C x V x TQ) uint8
-//    table in shared memory instead of the TPU's one-hot matmul; the
-//    payload [m, m^2, 1] is built in registers, never materialised.
-//  * f64 accumulation (Hopper has FP64) with no float atomics: block
-//    (chunk c, snippet tile) folds its chunk's tuples in ascending order into
-//    scratch[c, q, :]; a second pass sums the chunks in ascending order. The
-//    sum order depends only on T, so every run gives the same bits, and a
-//    snippet's sums do not depend on how many snippets ride along. A small
-//    chunk (256 tuples) gives the serving shape (one snippet tile) enough
-//    blocks to fill the card. The count column sums exact 0/1 values.
-//  * m^2 is rounded before it is scaled (__dmul_rn), as the plain version
-//    does, so no contraction into an FMA changes its rounding.
+// What bounds K1 on the H100: instruction issue, not bytes. Per (tuple,
+// snippet) pair it does 2L f64 compares and 2M+1 f64 adds (both on the FP64
+// pipe), C membership tests and a select, against ~T(8L + 4C + 8M + 8)
+// bytes read once (3.4 MB at T = 60,000 and the main path's widths, ~1 us).
+// The main path's stage loop issues ~34 instructions a tuple a warp
+// (cuobjdump -sass; ~55 for 64 snippets at 2 a lane). At the serving shape
+// (T = 60,000, Q = 128) the fixed fold order allows 940 warps, 1.8 a
+// scheduler, so latency, not issue, is what the launch waits on.
+//
+// Design (redesigned for Hopper):
+//  * A warp owns (one chunk) x (a tile of 32 SPL snippets), SPL snippets a
+//    lane; a block is FMS_WARPS such warps on neighbouring snippet tiles of
+//    the same chunk, the tiles varying fastest over the grid (K4's grid).
+//    Warps sync only within themselves. SPL is 1 at the serving shape
+//    (Q = 128 gives only 940 warps: the card needs every one) and 2 where
+//    the grid is wide (one broadcast tuple then feeds two chains, and a
+//    warp's ring serves twice the snippets: half the shared memory and
+//    loads a snippet).
+//  * Per snippet, everything that does not depend on the tuple lives in
+//    registers: lo - eps and hi + eps of up to FMS_LB = 4 numeric dims, and
+//    the category set of each of up to FMS_CB = 4 categorical dims as a bit
+//    word (32 bits when V <= 32, 64 when V <= 64), tested as
+//    (word >> code) & 1. Fewer dims are padded with neutral ones (x = 0
+//    against [-inf, inf], code 0 against the word 1), so one instantiation
+//    serves every L <= 4 and C <= 4. M is a template argument, so the
+//    per-tuple update is straight-line code.
+//  * Tuples stream through a per-warp ring of FMS_STAGES stages of
+//    FMS_ROWS tuples in shared memory, filled with cp.async (one group a
+//    stage; lane i copies tuple i of the stage), so FMS_STAGES - 1 stages
+//    are in flight while the warp folds one. A staged tuple is one record
+//    [x (4), m (M), m^2 (M), valid] of doubles read as 16-byte broadcasts,
+//    and its codes one 16-byte word. m^2 is formed once per tuple
+//    (__dmul_rn, K4's and the plain version's rounding) by the lane that
+//    copied it when its stage lands, which also zeroes the weight of a
+//    tuple with a code outside [0, V). The category words' shifted bits are
+//    ANDed before bit 0 is tested (an AND the compiler cannot see into:
+//    left to itself it tests each word's bit apart, 3 instructions a dim).
+//    A ragged stage is zero-filled, and a zero tuple adds exactly nothing
+//    (fma(0, 0, acc) == acc; acc is never -0), so every stage folds all
+//    FMS_ROWS tuples unrolled.
+//  * The snippets' category sets (Q x C x V bytes) reach shared memory in
+//    the ring's first group and become bit words there.
+//  * The ordered sum over chunks is K4's second pass (mpa_fold).
+//  * Other shapes (L > 4, C > 4 or V > 64) take fms_partials_any: one lane
+//    a snippet, every value read where it lies (L1), the same fold. No
+//    width is refused.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "async_copy.cuh"
 
 namespace {
 
-constexpr int SNIPPETS_PER_BLOCK = 128;  // TQ: one thread per snippet
-constexpr int TUPLES_PER_TILE = 128;     // tuples staged in shared memory
-constexpr int MAX_M = 8;                 // measures kept in registers
+constexpr int MAX_M = 8;       // measures one launch folds (templated)
+constexpr int FMS_WARPS = 4;   // warps a block: neighbouring snippet tiles
+constexpr int FMS_SPL_WIDE = 2;  // snippets a lane on a wide grid
+constexpr int FMS_WIDE_WARPS = 16;  // ... when it gives an SM this many warps
+constexpr int FMS_RK = 1;      // tuples a lane copies into a stage
+constexpr int FMS_ROWS = 32 * FMS_RK;    // tuples a ring stage
+constexpr int FMS_STAGES = 3;  // ring depth: FMS_STAGES - 1 in flight
+constexpr int FMS_LB = 4;      // numeric dims in registers (padded)
+constexpr int FMS_CB = 4;      // categorical dims in registers (padded)
+constexpr int FMS_VMAX = 64;   // values of a categorical dim in a bit word
+static_assert(FMS_CB == 4, "a tuple's codes are one int4");
 
-__global__ void fms_partials(const double* __restrict__ x,
-                             const int* __restrict__ codes,
-                             const double* __restrict__ valid,
-                             const double* __restrict__ meas,
-                             const double* __restrict__ lo,
-                             const double* __restrict__ hi,
-                             const uint8_t* __restrict__ cat,
-                             int T, int Q, int L, int C, int V, int M,
-                             int chunk, double eps,
-                             double* __restrict__ scratch) {
-  constexpr int TQ = SNIPPETS_PER_BLOCK;
-  constexpr int TT = TUPLES_PER_TILE;
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* lo_s = reinterpret_cast<double*>(smem);  // [L][TQ]
-  double* hi_s = lo_s + L * TQ;                    // [L][TQ]
-  double* x_s = hi_s + L * TQ;                     // [TT][L]
-  double* m_s = x_s + TT * L;                      // [TT][M]
-  double* v_s = m_s + TT * M;                      // [TT]
-  int* code_s = reinterpret_cast<int*>(v_s + TT);  // [TT][C]
-  uint8_t* cat_s = reinterpret_cast<uint8_t*>(code_s + TT * C);  // [C*V][TQ]
+// The staged record of one tuple, in doubles: x [0, LB), m [LB, LB + M),
+// m^2 [LB + M, LB + 2M), valid at LB + 2M; an even size (16-byte pairs).
+template <int M>
+struct Rec {
+  static constexpr int X = 0, MV = FMS_LB, MQ = FMS_LB + M, V = FMS_LB + 2 * M;
+  static constexpr int SIZE = (FMS_LB + 2 * M + 2) / 2 * 2;
+};
 
-  const int tid = threadIdx.x;
-  const int q = blockIdx.y * TQ + tid;
-  const bool live = q < Q;
-  const int t_begin = blockIdx.x * chunk;
-  const int t_end = min(T, t_begin + chunk);
+// a & b, opaque to the compiler, so that it tests bit 0 of the AND of the
+// shifted category words once instead of each word's bit apart.
+__device__ __forceinline__ uint32_t and_opaque(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("and.b32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint64_t and_opaque(uint64_t a, uint64_t b) {
+  uint64_t r;
+  asm("and.b64 %0, %1, %2;" : "=l"(r) : "l"(a), "l"(b));
+  return r;
+}
 
-  for (int k = 0; k < L; ++k) {
-    lo_s[k * TQ + tid] = live ? lo[(size_t)q * L + k] - eps : 0.0;
-    hi_s[k * TQ + tid] = live ? hi[(size_t)q * L + k] + eps : 0.0;
+// Load a staged record (16-byte aligned, of an even size) as 16-byte pairs.
+template <int SIZE>
+__device__ __forceinline__ void load_record(const double* rec,
+                                            double (&f)[SIZE]) {
+#pragma unroll
+  for (int e = 0; e < SIZE / 2; ++e) {
+    const double2 d = reinterpret_cast<const double2*>(rec)[e];
+    f[2 * e] = d.x;
+    f[2 * e + 1] = d.y;
   }
-  for (int j = 0; j < C * V; ++j)
-    cat_s[j * TQ + tid] = live ? cat[(size_t)q * C * V + j] : 0;
+}
 
-  double acc_s[MAX_M], acc_q[MAX_M], acc_n = 0.0;
-#pragma unroll
-  for (int j = 0; j < MAX_M; ++j) acc_s[j] = acc_q[j] = 0.0;
+// Shared memory of one warp of fms_partials<M>: the ring's records, its
+// codes and the warp's category sets (C * V bytes a snippet).
+__host__ __device__ inline size_t fms_warp_smem(int m, int c, int v,
+                                                int spl) {
+  const size_t rec = (FMS_LB + 2 * m + 2) / 2 * 2;
+  const size_t cat = ((size_t)32 * spl * c * v + 15) / 16 * 16;
+  return FMS_STAGES * FMS_ROWS * (rec * sizeof(double) + FMS_CB * sizeof(int))
+         + cat;
+}
 
-  for (int t0 = t_begin; t0 < t_end; t0 += TT) {
-    const int n = min(TT, t_end - t0);
-    __syncthreads();  // the previous tile (and the table) is fully read
-    for (int i = tid; i < n * L; i += TQ) x_s[i] = x[(size_t)t0 * L + i];
-    for (int i = tid; i < n * M; i += TQ) m_s[i] = meas[(size_t)t0 * M + i];
-    for (int i = tid; i < n * C; i += TQ) code_s[i] = codes[(size_t)t0 * C + i];
-    for (int i = tid; i < n; i += TQ) v_s[i] = valid ? valid[t0 + i] : 1.0;
-    __syncthreads();
-    if (!live) continue;
-    for (int t = 0; t < n; ++t) {
-      bool hit = true;
-      for (int k = 0; k < L; ++k) {
-        const double xv = x_s[t * L + k];
-        hit = hit && (xv >= lo_s[k * TQ + tid]) && (xv <= hi_s[k * TQ + tid]);
-      }
-      for (int k = 0; k < C; ++k) {
-        const int code = code_s[t * C + k];
-        hit = hit && (unsigned)code < (unsigned)V &&
-              cat_s[(k * V + code) * TQ + tid] != 0;
-      }
-      const double w = hit ? v_s[t] : 0.0;
+template <int M, int VW, int SPL>
+__global__ void __launch_bounds__(32 * FMS_WARPS)
+    fms_partials(const double* __restrict__ x, const int* __restrict__ codes,
+                 const double* __restrict__ valid,
+                 const double* __restrict__ meas, int ms,
+                 const double* __restrict__ lo, const double* __restrict__ hi,
+                 const uint8_t* __restrict__ cat, int T, int Q, int L, int C,
+                 int V, int chunk, int n_qb, double eps,
+                 double* __restrict__ scratch) {
+  using R = Rec<M>;
+  using Word = std::conditional_t<VW == 1, uint32_t, uint64_t>;
+  constexpr int RW = FMS_ROWS;
+  constexpr int S = FMS_STAGES;
+  constexpr int MA = M > 0 ? M : 1;
+  extern __shared__ __align__(16) unsigned char fms_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qb = blockIdx.x % n_qb;
+  const int c = blockIdx.x / n_qb;
+  constexpr int TILE = 32 * SPL;  // snippets a warp
+  const int q0 = (qb * FMS_WARPS + warp) * TILE;
+  if (q0 >= Q) return;  // no live snippet (the warp syncs with no other)
+  const int n_live = min(TILE, Q - q0);
+  unsigned char* base = fms_smem + warp * fms_warp_smem(M, C, V, SPL);
+  double* ring = reinterpret_cast<double*>(base);  // [S][RW][SIZE]
+  int* cring = reinterpret_cast<int*>(ring + S * RW * R::SIZE);  // [S][RW][4]
+  uint8_t* cat_s = reinterpret_cast<uint8_t*>(cring + S * RW * FMS_CB);
+
+  const int t_begin = c * chunk;
+  const int n_rows = min(chunk, T - t_begin);
+  const int n_st = (n_rows + RW - 1) / RW;
+
+  // Fields no copy writes: the padded numeric and categorical dims.
+  for (int e = lane; e < S * RW; e += 32) {
+    for (int k = L; k < FMS_LB; ++k) ring[e * R::SIZE + R::X + k] = 0.0;
+    for (int k = C; k < FMS_CB; ++k) cring[e * FMS_CB + k] = 0;
+  }
+  // The tile's category sets, in the ring's first group.
+  const uint8_t* cat_g = cat + (size_t)q0 * C * V;
+  const int nb = n_live * C * V;
+  int plain_from = 0;
+  if ((reinterpret_cast<uintptr_t>(cat_g) & 3) == 0) {
+    for (int w = lane; w < nb / 4; w += 32)
+      cp_async<4>(cat_s + 4 * w, cat_g + 4 * w);
+    plain_from = nb / 4 * 4;
+  }
+  for (int b = plain_from + lane; b < nb; b += 32) cat_s[b] = cat_g[b];
+
+  auto load_stage = [&](int st) {
+    if (st >= n_st) return;
+    double* rs = ring + (st % S) * RW * R::SIZE;
+    int* cs = cring + (st % S) * RW * FMS_CB;
 #pragma unroll
-      for (int j = 0; j < MAX_M; ++j) {
-        if (j < M) {
-          const double mv = m_s[t * M + j];
-          acc_s[j] = __fma_rn(w, mv, acc_s[j]);
-          acc_q[j] = __fma_rn(w, __dmul_rn(mv, mv), acc_q[j]);
+    for (int rk = 0; rk < FMS_RK; ++rk) {
+      const int i = lane + 32 * rk;
+      const int r = st * RW + i;
+      const bool in = r < n_rows;
+      const size_t t = in ? (size_t)(t_begin + r) : 0;  // a row that exists
+      double* rec = rs + i * R::SIZE;
+#pragma unroll
+      for (int k = 0; k < FMS_LB; ++k)
+        if (k < L) cp_async<8>(rec + R::X + k, x + t * L + k, in);
+#pragma unroll
+      for (int j = 0; j < M; ++j)
+        cp_async<8>(rec + R::MV + j, meas + t * ms + j, in);
+      if (valid)
+        cp_async<8>(rec + R::V, valid + t, in);
+      else
+        rec[R::V] = in ? 1.0 : 0.0;
+#pragma unroll
+      for (int k = 0; k < FMS_CB; ++k)
+        if (k < C) cp_async<4>(cs + i * FMS_CB + k, codes + t * C + k, in);
+    }
+  };
+  // This lane's tuples of stage st have landed: form m^2, and zero the
+  // weight (and codes) of a tuple with a code outside [0, V).
+  auto land_stage = [&](int st) {
+    double* rs = ring + (st % S) * RW * R::SIZE;
+    int* cs = cring + (st % S) * RW * FMS_CB;
+#pragma unroll
+    for (int rk = 0; rk < FMS_RK; ++rk) {
+      const int i = lane + 32 * rk;
+      double* rec = rs + i * R::SIZE;
+#pragma unroll
+      for (int j = 0; j < M; ++j)
+        rec[R::MQ + j] = __dmul_rn(rec[R::MV + j], rec[R::MV + j]);
+      bool bad = false;
+#pragma unroll
+      for (int k = 0; k < FMS_CB; ++k)
+        bad |= k < C && (unsigned)cs[i * FMS_CB + k] >= (unsigned)V;
+      if (bad) {
+        rec[R::V] = 0.0;
+#pragma unroll
+        for (int k = 0; k < FMS_CB; ++k) cs[i * FMS_CB + k] = 0;
+      }
+    }
+  };
+
+  for (int st = 0; st < S - 1; ++st) {  // the category sets ride in group 0
+    load_stage(st);
+    cp_async_commit();
+  }
+
+  // Per snippet: the widened bounds and the category words.
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  double lo_r[SPL][FMS_LB], hi_r[SPL][FMS_LB];
+  Word word[SPL][FMS_CB];
+#pragma unroll
+  for (int s = 0; s < SPL; ++s) {
+    const int q = q0 + lane + 32 * s;
+#pragma unroll
+    for (int k = 0; k < FMS_LB; ++k) {
+      const bool use = k < L && q < Q;
+      lo_r[s][k] = use ? lo[(size_t)q * L + k] - eps : -inf;
+      hi_r[s][k] = use ? hi[(size_t)q * L + k] + eps : inf;
+    }
+  }
+  cp_async_wait<S - 2>();
+  land_stage(0);
+  __syncwarp();  // every lane's copies of stage 0 and of the sets
+#pragma unroll
+  for (int s = 0; s < SPL; ++s) {
+    const int ls = lane + 32 * s;
+#pragma unroll
+    for (int k = 0; k < FMS_CB; ++k) {
+      Word w = 1;  // a padded dim: code 0, a member
+      if (k < C) {
+        w = 0;
+        if (ls < n_live)
+          for (int v = 0; v < V; ++v)
+            w |= Word(cat_s[(ls * C + k) * V + v] != 0) << v;
+      }
+      word[s][k] = w;
+    }
+  }
+
+  double acc_s[SPL][MA], acc_q[SPL][MA], acc_n[SPL];
+#pragma unroll
+  for (int s = 0; s < SPL; ++s) {
+    acc_n[s] = 0.0;
+#pragma unroll
+    for (int j = 0; j < MA; ++j) acc_s[s][j] = acc_q[s][j] = 0.0;
+  }
+
+  for (int st = 0; st < n_st; ++st) {
+    load_stage(st + S - 1);  // into stage st - 1's slot, read by now
+    cp_async_commit();
+    const double* rs = ring + (st % S) * RW * R::SIZE;
+    const int* cs = cring + (st % S) * RW * FMS_CB;
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const double* rec = rs + i * R::SIZE;
+      double f[R::SIZE];
+      load_record(rec, f);
+      const int4 cd = *reinterpret_cast<const int4*>(cs + i * FMS_CB);
+      const unsigned code[FMS_CB] = {(unsigned)cd.x, (unsigned)cd.y,
+                                     (unsigned)cd.z, (unsigned)cd.w};
+#pragma unroll
+      for (int s = 0; s < SPL; ++s) {
+        bool hit = true;
+#pragma unroll
+        for (int k = 0; k < FMS_LB; ++k)
+          hit = hit & (f[R::X + k] >= lo_r[s][k]) &
+                (f[R::X + k] <= hi_r[s][k]);
+        Word bits = word[s][0] >> code[0];
+#pragma unroll
+        for (int k = 1; k < FMS_CB; ++k)
+          bits = and_opaque(bits, word[s][k] >> code[k]);
+        const double w = (hit && (bits & 1)) ? f[R::V] : 0.0;
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          acc_s[s][j] = __fma_rn(w, f[R::MV + j], acc_s[s][j]);
+          acc_q[s][j] = __fma_rn(w, f[R::MQ + j], acc_q[s][j]);
         }
+        acc_n[s] = __dadd_rn(acc_n[s], w);
       }
-      acc_n += w;
+    }
+    if (st + 1 < n_st) {
+      cp_async_wait<S - 2>();  // stage st + 1 has landed (this lane's)
+      land_stage(st + 1);
+      __syncwarp();  // ... every lane's, and stage st is fully read
     }
   }
-  if (!live) return;
-  const int P = 2 * M + 1;
-  double* dst = scratch + ((size_t)blockIdx.x * Q + q) * P;
+  cp_async_wait<0>();
 #pragma unroll
-  for (int j = 0; j < MAX_M; ++j) {
-    if (j < M) {
-      dst[j] = acc_s[j];
-      dst[M + j] = acc_q[j];
+  for (int s = 0; s < SPL; ++s) {
+    const int q = q0 + lane + 32 * s;
+    if (q >= Q) continue;
+    double* dst = scratch + ((size_t)c * Q + q) * (2 * M + 1);
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      dst[j] = acc_s[s][j];
+      dst[M + j] = acc_q[s][j];
     }
+    dst[2 * M] = acc_n[s];
+  }
+}
+
+// K1 at any width (L > FMS_LB, C > FMS_CB or V > FMS_VMAX): one lane a
+// snippet, a block of 32 FMS_WARPS snippets of one chunk, every value read
+// where it lies; the same fold, so the same bits as fms_partials.
+template <int M>
+__global__ void __launch_bounds__(32 * FMS_WARPS)
+    fms_partials_any(const double* __restrict__ x,
+                     const int* __restrict__ codes,
+                     const double* __restrict__ valid,
+                     const double* __restrict__ meas, int ms,
+                     const double* __restrict__ lo,
+                     const double* __restrict__ hi,
+                     const uint8_t* __restrict__ cat, int T, int Q, int L,
+                     int C, int V, int chunk, int n_qb, double eps,
+                     double* __restrict__ scratch) {
+  constexpr int MA = M > 0 ? M : 1;
+  const int qb = blockIdx.x % n_qb;
+  const int c = blockIdx.x / n_qb;
+  const int q = qb * 32 * FMS_WARPS + threadIdx.x;
+  if (q >= Q) return;
+  const int t_begin = c * chunk;
+  const int t_end = min(T, t_begin + chunk);
+  double acc_s[MA], acc_q[MA], acc_n = 0.0;
+#pragma unroll
+  for (int j = 0; j < MA; ++j) acc_s[j] = acc_q[j] = 0.0;
+  for (int t = t_begin; t < t_end; ++t) {
+    bool hit = true;
+    for (int k = 0; k < L && hit; ++k) {
+      const double xv = x[(size_t)t * L + k];
+      hit = xv >= lo[(size_t)q * L + k] - eps &&
+            xv <= hi[(size_t)q * L + k] + eps;
+    }
+    for (int k = 0; k < C && hit; ++k) {
+      const int code = codes[(size_t)t * C + k];
+      hit = (unsigned)code < (unsigned)V &&
+            cat[((size_t)q * C + k) * V + code] != 0;
+    }
+    const double w = hit ? (valid ? valid[t] : 1.0) : 0.0;
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      const double mv = meas[(size_t)t * ms + j];
+      acc_s[j] = __fma_rn(w, mv, acc_s[j]);
+      acc_q[j] = __fma_rn(w, __dmul_rn(mv, mv), acc_q[j]);
+    }
+    acc_n = __dadd_rn(acc_n, w);
+  }
+  double* dst = scratch + ((size_t)c * Q + q) * (2 * M + 1);
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    dst[j] = acc_s[j];
+    dst[M + j] = acc_q[j];
   }
   dst[2 * M] = acc_n;
 }
@@ -145,13 +403,9 @@ __global__ void fms_partials(const double* __restrict__ x,
 // ~0.7 us of memory latency the card needs ~2.3 MB of loads in flight.
 //
 // Design (redesigned for Hopper: an asynchronous-copy ring per warp):
-//  * The fold order is K1's and is not up for trade: for each snippet q the
-//    tuples of each FMS chunk (256) are folded in ascending order with K1's
-//    per-tuple update on the mask value w (acc_s = fma(w, m, acc_s),
-//    acc_q = fma(w, m*m rounded, acc_q), acc_n += w), and the chunks are
-//    summed in ascending order from 0.0. On a 0/1 mask built from the same
-//    predicates the result is therefore bitwise K1's on the same block,
-//    which is what makes a mesh session answer bitwise like a local one.
+//  * The fold order is K1's (above): on a 0/1 mask built from the same
+//    predicates the result is bitwise K1's on the same block, which is what
+//    makes a mesh session answer bitwise like a local one.
 //  * A warp owns (one chunk) x (a tile of 32 snippets), one lane per
 //    snippet; a block is MPA_WARPS such warps on neighbouring snippet tiles
 //    of the same chunk, so together they read whole stretches of the same
@@ -169,7 +423,8 @@ __global__ void fms_partials(const double* __restrict__ x,
 //    per-tuple update is straight-line code: once the bytes stream, the
 //    warp's serial FMA chain is what a Q = 128 launch waits on, and a
 //    loop guarding MAX_M slots at run time makes that chain several
-//    times longer.
+//    times longer. Above 8 measures the wrapper launches over groups of at
+//    most 8, as for K1 (the measures read in place with their row stride).
 //  * The ordered sum over chunks is a second launch (mpa_fold): a block
 //    copies 32 outputs' partials of up to 256 chunks into shared memory at
 //    once (every load in flight), then one lane an output sums them in
@@ -185,11 +440,12 @@ constexpr size_t FOLD_SMEM = sizeof(double) * FOLD_CHUNKS * 32;
 template <bool VEC16, int M>
 __global__ void __launch_bounds__(MPA_TILE_Q * MPA_WARPS)
     mpa_partials(const double* __restrict__ mask,
-                 const double* __restrict__ meas, int T, int Q, int chunk,
-                 int n_qb, double* __restrict__ scratch) {
+                 const double* __restrict__ meas, int ms, int T, int Q,
+                 int chunk, int n_qb, double* __restrict__ scratch) {
   constexpr int TQ = MPA_TILE_Q;
   constexpr int R = MPA_ROWS;
   constexpr int S = MPA_STAGES;
+  constexpr int MA = M > 0 ? M : 1;
   extern __shared__ __align__(16) double mpa_smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   double* ring = mpa_smem + warp * S * R * TQ;      // [S][R][TQ]
@@ -221,21 +477,23 @@ __global__ void __launch_bounds__(MPA_TILE_Q * MPA_WARPS)
     }
   };
 
-  const double* mv_g = meas + (size_t)t_begin * M;
+  const double* mv_g = meas + (size_t)t_begin * ms;
   const int tid = threadIdx.x, nthreads = TQ * MPA_WARPS;
-  if (VEC16 && (n_rows * M) % 2 == 0) {  // meas 16-byte aligned (launch)
+  if (ms == M && VEC16 && (n_rows * M) % 2 == 0) {  // 16-byte aligned
     for (int i = 2 * tid; i < n_rows * M; i += 2 * nthreads)
       cp_async<16>(m_s + i, mv_g + i);
-  } else {
+  } else if (ms == M) {
     for (int i = tid; i < n_rows * M; i += nthreads)
       cp_async<8>(m_s + i, mv_g + i);
+  } else {  // a group of wider measures: rows of ms, M of them read
+    for (int i = tid; i < n_rows * M; i += nthreads)
+      cp_async<8>(m_s + i, mv_g + (size_t)(i / MA) * ms + i % MA);
   }
   for (int st = 0; st < S - 1; ++st) {  // the measures ride in group 0
     if (st < n_st) load_stage(st);
     cp_async_commit();
   }
 
-  constexpr int MA = M > 0 ? M : 1;
   double acc_s[MA], acc_q[MA], acc_n = 0.0;
 #pragma unroll
   for (int j = 0; j < MA; ++j) acc_s[j] = acc_q[j] = 0.0;
@@ -274,34 +532,20 @@ __global__ void __launch_bounds__(MPA_TILE_Q * MPA_WARPS)
   dst[2 * M] = acc_n;
 }
 
-using MpaKernel = void (*)(const double*, const double*, int, int, int, int,
-                           double*);
-
-template <bool VEC16>
-MpaKernel mpa_kernel(int M) {
-  switch (M) {
-    case 0: return mpa_partials<VEC16, 0>;
-    case 1: return mpa_partials<VEC16, 1>;
-    case 2: return mpa_partials<VEC16, 2>;
-    case 3: return mpa_partials<VEC16, 3>;
-    case 4: return mpa_partials<VEC16, 4>;
-    case 5: return mpa_partials<VEC16, 5>;
-    case 6: return mpa_partials<VEC16, 6>;
-    case 7: return mpa_partials<VEC16, 7>;
-    default: return mpa_partials<VEC16, MAX_M>;
-  }
-}
-
-// K4's second pass: out[i] = sum over chunks c = 0, 1, ... of scratch[c, i],
-// in that order from 0.0 (fms_fold_chunks' order). A block owns 32 outputs:
-// all eight warps copy the chunks' values into shared memory with cp.async
-// (every load in flight at once), then warp 0 sums them, one lane an
-// output, in chunk order.
+// The second pass of K1 and K4: for each of the Q (2g+1) columns of a
+// group of g measures, the sum over chunks c = 0, 1, ... of scratch[c, i],
+// in that order from 0.0, written to the group's own column of the (Q,
+// 2 m_out + 1) output ([m, m^2, 1] order; col0 the group's first measure).
+// A block owns 32 outputs: all eight warps copy the chunks' values into
+// shared memory with cp.async (every load in flight at once), then warp 0
+// sums them, one lane an output, in chunk order.
 __global__ void __launch_bounds__(FOLD_THREADS)
-    mpa_fold(const double* __restrict__ scratch, int n_chunks, int n,
-             double* __restrict__ out) {
+    mpa_fold(const double* __restrict__ scratch, int n_chunks, int Q, int g,
+             int col0, int m_out, double* __restrict__ out) {
   extern __shared__ __align__(16) double fold_smem[];  // [FOLD_CHUNKS][32]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int P = 2 * g + 1;
+  const int n = Q * P;
   const int i = blockIdx.x * 32 + lane;
   double s = 0.0;
   for (int c0 = 0; c0 < n_chunks; c0 += FOLD_CHUNKS) {
@@ -317,69 +561,181 @@ __global__ void __launch_bounds__(FOLD_THREADS)
       for (int k = 0; k < nc; ++k) s += fold_smem[k * 32 + lane];
     __syncthreads();
   }
-  if (warp == 0 && i < n) out[i] = s;
+  if (warp == 0 && i < n) {
+    const int q = i / P, j = i % P;
+    const int col = j < g ? col0 + j
+                          : (j < 2 * g ? m_out + col0 + (j - g) : 2 * m_out);
+    out[(size_t)q * (2 * m_out + 1) + col] = s;
+  }
 }
 
-// out[i] = sum over chunks c = 0, 1, ... of scratch[c, i], in that order.
-__global__ void fms_fold_chunks(const double* __restrict__ scratch,
-                                int n_chunks, int n, double* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  double s = 0.0;
-  for (int c = 0; c < n_chunks; ++c) s += scratch[(size_t)c * n + i];
-  out[i] = s;
+int launch_fold(const double* scratch, int n_chunks, int Q, int g, int col0,
+                int m_out, double* out, cudaStream_t s) {
+  static uint64_t opted_in = 0;
+  cudaError_t e =
+      opt_in_smem(reinterpret_cast<const void*>(mpa_fold), opted_in);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n = Q * (2 * g + 1);
+  mpa_fold<<<(n + 31) / 32, FOLD_THREADS, FOLD_SMEM, s>>>(
+      scratch, n_chunks, Q, g, col0, m_out, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using FmsKernel = void (*)(const double*, const int*, const double*,
+                           const double*, int, const double*, const double*,
+                           const uint8_t*, int, int, int, int, int, int, int,
+                           double, double*);
+
+// Run CALL with the constant M equal to the run-time m (0..MAX_M).
+#define WITH_M(m, CALL)                              \
+  switch (m) {                                       \
+    case 0: { constexpr int M = 0; return CALL; }    \
+    case 1: { constexpr int M = 1; return CALL; }    \
+    case 2: { constexpr int M = 2; return CALL; }    \
+    case 3: { constexpr int M = 3; return CALL; }    \
+    case 4: { constexpr int M = 4; return CALL; }    \
+    case 5: { constexpr int M = 5; return CALL; }    \
+    case 6: { constexpr int M = 6; return CALL; }    \
+    case 7: { constexpr int M = 7; return CALL; }    \
+    default: { constexpr int M = 8; return CALL; }   \
+  }
+static_assert(MAX_M == 8, "WITH_M lists m = 0..8");
+
+// K1's path for a shape: 1 the register path with 32-bit category words,
+// 2 with 64-bit words, 0 fms_partials_any.
+int fms_path(int L, int C, int V) {
+  if (L > FMS_LB || C > FMS_CB) return 0;
+  if (C == 0 || V <= 32) return 1;
+  return V <= FMS_VMAX ? 2 : 0;
+}
+
+// Snippets a lane: FMS_SPL_WIDE on the register path when that grid still
+// gives every SM FMS_WIDE_WARPS warps (a wide Q: one broadcast tuple then
+// feeds more chains), else 1 (a small Q needs every warp it can get).
+int fms_spl(int path, int n_chunks, int Q, int n_sm) {
+  const long long tiles = (Q + 32 * FMS_SPL_WIDE - 1) / (32 * FMS_SPL_WIDE);
+  return path && (long long)n_chunks * tiles >= (long long)FMS_WIDE_WARPS * n_sm
+             ? FMS_SPL_WIDE
+             : 1;
+}
+
+FmsKernel fms_kernel(int path, int spl, int m) {
+  if (path == 1 && spl == 1) WITH_M(m, (fms_partials<M, 1, 1>))
+  if (path == 1) WITH_M(m, (fms_partials<M, 1, FMS_SPL_WIDE>))
+  if (path == 2 && spl == 1) WITH_M(m, (fms_partials<M, 2, 1>))
+  if (path == 2) WITH_M(m, (fms_partials<M, 2, FMS_SPL_WIDE>))
+  WITH_M(m, (fms_partials_any<M>))
+}
+
+// The current device's SM count, read once a device (K1 asks on every
+// launch).
+int sm_count() {
+  static int n_sm[64] = {};
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && n_sm[dev]) return n_sm[dev];
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < 64) n_sm[dev] = n;
+  return n;
+}
+
+using MpaKernel = void (*)(const double*, const double*, int, int, int, int,
+                           int, double*);
+
+template <bool VEC16>
+MpaKernel mpa_kernel(int m) {
+  WITH_M(m, (mpa_partials<VEC16, M>))
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Launches both passes on `stream`,
-// allocates nothing, and returns cudaGetLastError().
-// scratch: (ceil(T/chunk), Q, 2M+1) f64; out: (Q, 2M+1) f64.
-// valid may be null (every tuple valid).
+// Plain C entry point of K1 (bound with ctypes). Launches both passes on
+// `stream`, allocates nothing, and returns cudaGetLastError().
+// x: (T, L) f64; codes: (T, C) i32; valid: (T,) f64 or null (every tuple
+// valid); meas: the group's first of M <= 8 measures, rows `meas_stride`
+// apart; lo/hi: (Q, L) f64; cat: (Q, C, V) bytes (bool); scratch:
+// (ceil(T/chunk), Q, 2M+1) f64; out: (Q, 2 m_out + 1) f64, of which the
+// group writes the columns of measures col0 .. col0 + M - 1 and the count.
 extern "C" int fms_launch(const double* x, const int* codes,
                           const double* valid, const double* meas,
-                          const double* lo, const double* hi,
+                          int meas_stride, const double* lo, const double* hi,
                           const uint8_t* cat, int T, int Q, int L, int C,
-                          int V, int M, int chunk, double eps,
-                          double* scratch, double* out, void* stream) {
+                          int V, int M, int col0, int m_out, int chunk,
+                          double eps, double* scratch, double* out,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q <= 0) return 0;
-  if (M > MAX_M || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (M < 0 || M > MAX_M || chunk <= 0 || col0 < 0 || col0 + M > m_out)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_chunks = T > 0 ? (T + chunk - 1) / chunk : 0;
   if (n_chunks > 0) {
-    constexpr int TQ = SNIPPETS_PER_BLOCK;
-    constexpr int TT = TUPLES_PER_TILE;
-    const size_t smem = sizeof(double) * (2 * L * TQ + TT * L + TT * M + TT) +
-                        sizeof(int) * TT * C + (size_t)C * V * TQ;
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          fms_partials, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
+    const int path = fms_path(L, C, V);
+    const int spl = fms_spl(path, n_chunks, Q, sm_count());
+    const int width = 32 * spl * FMS_WARPS;
+    const int n_qb = (Q + width - 1) / width;
+    const long long blocks = (long long)n_chunks * n_qb;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const FmsKernel kernel = fms_kernel(path, spl, M);
+    size_t smem = 0;
+    if (path) {
+      smem = FMS_WARPS * fms_warp_smem(M, C, V, spl);
+      static uint64_t opted_in[3][2][MAX_M + 1] = {};
+      cudaError_t e = opt_in_smem(reinterpret_cast<const void*>(kernel),
+                                  opted_in[path][spl > 1][M]);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    dim3 grid(n_chunks, (Q + TQ - 1) / TQ);
-    fms_partials<<<grid, TQ, smem, s>>>(x, codes, valid, meas, lo, hi, cat, T,
-                                         Q, L, C, V, M, chunk, eps, scratch);
+    kernel<<<static_cast<unsigned>(blocks), 32 * FMS_WARPS, smem, s>>>(
+        x, codes, valid, meas, meas_stride, lo, hi, cat, T, Q, L, C, V,
+        chunk, n_qb, eps, scratch);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int n = Q * (2 * M + 1);
-  fms_fold_chunks<<<(n + 255) / 256, 256, 0, s>>>(scratch, n_chunks, n, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fold(scratch, n_chunks, Q, M, col0, m_out, out, s);
+}
+
+// K1's launch plan as the launch above computes it on the current device,
+// for the wrapper's fused_scan_plan: out = {path (0 any width, 1 32-bit
+// category words, 2 64-bit), snippets a lane, snippets a block, chunks,
+// q tiles, partial blocks, fold blocks, dynamic shared memory a block, the
+// device's SMs, tuples a ring stage}. Returns 0.
+extern "C" int fms_plan(int T, int Q, int M, int L, int C, int V, int chunk,
+                        int* out) {
+  const int path = fms_path(L, C, V);
+  const int n_chunks = T > 0 ? (T + chunk - 1) / chunk : 0;
+  const int n_sm = sm_count();
+  const int spl = fms_spl(path, n_chunks, Q, n_sm);
+  const int width = 32 * spl * FMS_WARPS;
+  const int n_qb = (Q + width - 1) / width;
+  out[0] = path;
+  out[1] = spl;
+  out[2] = width;
+  out[3] = n_chunks;
+  out[4] = n_qb;
+  out[5] = n_chunks * n_qb;
+  out[6] = (Q * (2 * M + 1) + 31) / 32;
+  out[7] = path ? static_cast<int>(FMS_WARPS * fms_warp_smem(M, C, V, spl))
+                : 0;
+  out[8] = n_sm;
+  out[9] = FMS_ROWS;
+  return 0;
 }
 
 // Plain C entry point of K4 (bound with ctypes). Launches both passes on
 // `stream`, allocates nothing, and returns cudaGetLastError().
-// mask: (T, Q) f64; meas: (T, M) f64; scratch: (ceil(T/chunk), Q, 2M+1) f64;
-// out: (Q, 2M+1) f64. The grid is ceil(T/chunk) * ceil(Q/128) blocks of
-// four warps, q tiles fastest (mpa_plan reports it; the wrapper's plan
-// mirrors it).
-extern "C" int mpa_launch(const double* mask, const double* meas, int T,
-                          int Q, int M, int chunk, double* scratch,
-                          double* out, void* stream) {
+// mask: (T, Q) f64; meas: the group's first of M <= 8 measures, rows
+// `meas_stride` apart; scratch: (ceil(T/chunk), Q, 2M+1) f64; out: (Q,
+// 2 m_out + 1) f64, of which the group writes its own columns (as K1's).
+// The grid is ceil(T/chunk) * ceil(Q/128) blocks of four warps, q tiles
+// fastest (mpa_plan reports it; the wrapper's plan mirrors it).
+extern "C" int mpa_launch(const double* mask, const double* meas,
+                          int meas_stride, int T, int Q, int M, int col0,
+                          int m_out, int chunk, double* scratch, double* out,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q <= 0) return 0;
-  if (M > MAX_M || M < 0 || chunk <= 0)
+  if (M > MAX_M || M < 0 || chunk <= 0 || col0 < 0 || col0 + M > m_out)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_chunks = T > 0 ? (T + chunk - 1) / chunk : 0;
   if (n_chunks > 0) {
@@ -399,18 +755,11 @@ extern "C" int mpa_launch(const double* mask, const double* meas, int T,
                            opted_in[vec16][M]);
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<static_cast<unsigned>(blocks), MPA_TILE_Q * MPA_WARPS, smem,
-             s>>>(mask, meas, T, Q, chunk, n_qb, scratch);
+             s>>>(mask, meas, meas_stride, T, Q, chunk, n_qb, scratch);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int n = Q * (2 * M + 1);
-  static uint64_t fold_opted_in = 0;
-  cudaError_t e =
-      opt_in_smem(reinterpret_cast<const void*>(mpa_fold), fold_opted_in);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  mpa_fold<<<(n + 31) / 32, FOLD_THREADS, FOLD_SMEM, s>>>(scratch, n_chunks,
-                                                         n, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fold(scratch, n_chunks, Q, M, col0, m_out, out, s);
 }
 
 // K4's launch plan as the launch above computes it, for the wrapper's tests:

@@ -22,7 +22,12 @@
 // memory and read by the whole warp at once (a broadcast). Block (chunk c,
 // snippet tile) folds its chunk's tuples in ascending order into
 // scratch[c, q, :]; a second pass sums the chunks in ascending order. The
-// result is the same bits on every run: no float atomics.
+// result is the same bits on every run: no float atomics. A launch folds at
+// most MAX_P = 17 payload columns (kept in registers); the wrapper folds
+// more in launches over groups of at most 17, each reading its columns in
+// place (the payload pointer at the group's first column, the full row
+// stride) and writing its own columns of the output. A column's bits do
+// not depend on the columns that ride along.
 #include <cuda_runtime.h>
 
 namespace {
@@ -32,7 +37,7 @@ constexpr int TUPLES_PER_TILE = 128;     // tuples staged in shared memory
 constexpr int MAX_P = 17;                // payload columns kept in registers
 
 __global__ void rma_partials(const float* __restrict__ x,
-                             const float* __restrict__ payload,
+                             const float* __restrict__ payload, int ps,
                              const float* __restrict__ lo,
                              const float* __restrict__ hi,
                              const float* __restrict__ extra, int T, int Q,
@@ -65,7 +70,8 @@ __global__ void rma_partials(const float* __restrict__ x,
     const int n = min(TT, t_end - t0);
     __syncthreads();  // the previous tile is fully read
     for (int i = tid; i < n * L; i += TQ) x_s[i] = x[(size_t)t0 * L + i];
-    for (int i = tid; i < n * P; i += TQ) p_s[i] = payload[(size_t)t0 * P + i];
+    for (int i = tid; i < n * P; i += TQ)
+      p_s[i] = payload[(size_t)(t0 + i / P) * ps + i % P];
     __syncthreads();
     if (!live) continue;
     const float* col = extra + (size_t)t0 * Q + q;
@@ -90,26 +96,32 @@ __global__ void rma_partials(const float* __restrict__ x,
   }
 }
 
-// out[i] = sum over chunks c = 0, 1, ... of scratch[c, i], in that order.
+// out[q, p] (rows `os` apart) = sum over chunks c = 0, 1, ... of
+// scratch[c, q, p], in that order, for the P columns of one group.
 __global__ void rma_fold_chunks(const float* __restrict__ scratch,
-                                int n_chunks, int n, float* __restrict__ out) {
+                                int n_chunks, int Q, int P, int os,
+                                float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = Q * P;
   if (i >= n) return;
   float s = 0.0f;
   for (int c = 0; c < n_chunks; ++c) s = __fadd_rn(s, scratch[(size_t)c * n + i]);
-  out[i] = s;
+  out[(size_t)(i / P) * os + i % P] = s;
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches both passes on `stream`,
 // allocates nothing, and returns cudaGetLastError().
-// x: (T, L); payload: (T, P); lo/hi: (Q, L); extra: (T, Q), all f32;
-// scratch: (ceil(T/chunk), Q, P) f32; out: (Q, P) f32.
+// x: (T, L); payload: the group's first of P <= 17 columns, rows
+// `payload_stride` apart; lo/hi: (Q, L); extra: (T, Q), all f32; scratch:
+// (ceil(T/chunk), Q, P) f32; out: the group's first column of the output,
+// rows `out_stride` apart.
 extern "C" int rma_launch(const float* x, const float* payload,
-                          const float* lo, const float* hi, const float* extra,
-                          int T, int Q, int L, int P, int chunk, float eps,
-                          float* scratch, float* out, void* stream) {
+                          int payload_stride, const float* lo,
+                          const float* hi, const float* extra, int T, int Q,
+                          int L, int P, int chunk, float eps, float* scratch,
+                          float* out, int out_stride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q <= 0) return 0;
   if (P > MAX_P || P <= 0 || chunk <= 0)
@@ -126,12 +138,14 @@ extern "C" int rma_launch(const float* x, const float* payload,
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     dim3 grid(n_chunks, (Q + TQ - 1) / TQ);
-    rma_partials<<<grid, TQ, smem, s>>>(x, payload, lo, hi, extra, T, Q, L, P,
-                                         chunk, eps, scratch);
+    rma_partials<<<grid, TQ, smem, s>>>(x, payload, payload_stride, lo, hi,
+                                         extra, T, Q, L, P, chunk, eps,
+                                         scratch);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int n = Q * P;
-  rma_fold_chunks<<<(n + 255) / 256, 256, 0, s>>>(scratch, n_chunks, n, out);
+  rma_fold_chunks<<<(n + 255) / 256, 256, 0, s>>>(scratch, n_chunks, Q, P,
+                                                   out_stride, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,6 +58,15 @@
 //    and erf call). Kernels are templated on the type (the reference takes
 //    f64 and f32) and on l (0..MAX_L), so the per-dimension values stay in
 //    registers.
+//  * Any l above MAX_L takes the kernels for any width (se_cov_fwd_any,
+//    se_cov_reduce_any): one thread an entry, the ranges read where they
+//    lie, the product formed as the dimensions go, and with derivatives the
+//    clamped integrals g_k kept in a scratch (l, n_i, n_j) and the dg_k in
+//    dout until the products over the other dimensions are formed. The
+//    same arithmetic in the same order, so the same three contracts hold:
+//    the f64 per-dimension integrals are the plain version's bits, D is
+//    se_cov_derivs_ref's, and a Gram matrix (which runs the general kernel
+//    for any width) is the general kernel's bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -374,6 +383,81 @@ se_cov_fold(const T* __restrict__ part, int n_blocks, int l,
   if (threadIdx.x == 0) grad_ls[k] = s[0];
 }
 
+// The general forward for any l: one thread per (a, b), a block of TI x TJ,
+// the ranges and lengthscales read from global memory. With derivatives,
+// g_k goes to the scratch gs and dg_k to dout (both (l, n_i, n_j)) as the
+// dimensions go; then D_k = (s prod_{j!=k} g_j) dg_k replaces dg_k.
+template <typename T, bool derivs>
+__global__ void __launch_bounds__(TI * TJ)
+se_cov_fwd_any(const T* __restrict__ lo_i, const T* __restrict__ hi_i,
+               const T* __restrict__ lo_j, const T* __restrict__ hi_j,
+               const T* __restrict__ ls, const T* __restrict__ norm_i,
+               const T* __restrict__ norm_j, T sigma2, int ni, int nj, int l,
+               T* __restrict__ out, T* __restrict__ dout, T* __restrict__ gs) {
+  const int a = blockIdx.y * TI + threadIdx.y;
+  const int b = blockIdx.x * TJ + threadIdx.x;
+  if (a >= ni || b >= nj) return;
+  const size_t at = (size_t)a * nj + b, plane = (size_t)ni * nj;
+  T acc = T(1);
+  for (int k = 0; k < l; ++k) {
+    const T z = ls[k];
+    const T c1 = rmul(rmul(T(-0.5), z), z), c2 = rmul(T(HALF_SQRT_PI), z);
+    const T ra = lo_i[(size_t)a * l + k], rb = hi_i[(size_t)a * l + k];
+    const T rc = lo_j[(size_t)b * l + k], rd = hi_j[(size_t)b * l + k];
+    T f[4], df[4] = {T(0), T(0), T(0), T(0)};
+    antideriv<T, derivs>(rsub(rb, rd), z, c1, c2, &f[0], &df[0]);
+    antideriv<T, derivs>(rsub(rb, rc), z, c1, c2, &f[1], &df[1]);
+    antideriv<T, derivs>(rsub(ra, rd), z, c1, c2, &f[2], &df[2]);
+    antideriv<T, derivs>(rsub(ra, rc), z, c1, c2, &f[3], &df[3]);
+    const T ii = incl_excl(f, false);
+    const T g = ii < T(0) ? T(0) : ii;  // clamp(min=0): NaN stays NaN
+    acc = rmul(acc, g);
+    if (derivs) {
+      gs[k * plane + at] = g;
+      dout[k * plane + at] = ii >= T(0) ? incl_excl(df, false) : T(0);
+    }
+  }
+  const T nn = rmul(norm_i[a], norm_j[b]);
+  out[at] = rdiv(rmul(sigma2, acc), nn);
+  if (derivs) {
+    const T s = rdiv(sigma2, nn);
+    for (int k = 0; k < l; ++k) {
+      T others = T(1);
+      for (int j = 0; j < l; ++j)
+        if (j != k) others = rmul(others, gs[j * plane + at]);
+      dout[k * plane + at] = rmul(rmul(s, others), dout[k * plane + at]);
+    }
+  }
+}
+
+// part[block, k] for dimension k = blockIdx.y, for any l: se_cov_reduce's
+// arithmetic for one dimension (the same sums in the same order).
+template <typename T>
+__global__ void __launch_bounds__(RED_THREADS)
+se_cov_reduce_any(const T* __restrict__ G, const T* __restrict__ D,
+                  long long m, int l, T* __restrict__ part) {
+  __shared__ T warp_s[RED_THREADS / 32];
+  const int k = blockIdx.y;
+  const long long base = (long long)blockIdx.x * RED_CHUNK + threadIdx.x;
+  T acc = T(0);
+#pragma unroll
+  for (int i = 0; i < RED_EACH; ++i) {
+    const long long e = base + (long long)i * RED_THREADS;
+    if (e < m) acc += G[e] * D[k * m + e];
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if (lane == 0) warp_s[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T t = T(0);
+    for (int w = 0; w < RED_THREADS / 32; ++w) t += warp_s[w];
+    part[(size_t)blockIdx.x * l + k] = t;
+  }
+}
+
 // One antiderivative (and with grad its z-derivative) an element: the
 // kernels' own code, for the card's check that F is even bit for bit and
 // for counting its FP64 instructions in the built library.
@@ -401,7 +485,7 @@ __global__ void se_cov_probe(const T* __restrict__ u, T z, int m,
     case 6: { constexpr int L = 6; return CALL; } \
     case 7: { constexpr int L = 7; return CALL; } \
     case 8: { constexpr int L = 8; return CALL; } \
-    default: return static_cast<int>(cudaErrorInvalidValue); \
+    default: break;                          \
   }
 static_assert(MAX_L == 8, "SE_WITH_L lists l = 0..8");
 
@@ -410,7 +494,7 @@ struct Args {
   const T *lo_i, *hi_i, *lo_j, *hi_j, *ls, *norm_i, *norm_j;
   T sigma2;
   int ni, nj;
-  T *out, *dout;
+  T *out, *dout, *gs;
 };
 
 template <typename T, int L, bool derivs>
@@ -439,15 +523,33 @@ int gram_l(const Args<T>& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Any l above MAX_L, a Gram matrix too: the general kernel for any width.
+template <typename T>
+int fwd_any(const Args<T>& p, int l, cudaStream_t s) {
+  if (p.dout && !p.gs) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((p.nj + TJ - 1) / TJ, (p.ni + TI - 1) / TI);
+  if (p.dout)
+    se_cov_fwd_any<T, true><<<grid, dim3(TJ, TI), 0, s>>>(
+        p.lo_i, p.hi_i, p.lo_j, p.hi_j, p.ls, p.norm_i, p.norm_j, p.sigma2,
+        p.ni, p.nj, l, p.out, p.dout, p.gs);
+  else
+    se_cov_fwd_any<T, false><<<grid, dim3(TJ, TI), 0, s>>>(
+        p.lo_i, p.hi_i, p.lo_j, p.hi_j, p.ls, p.norm_i, p.norm_j, p.sigma2,
+        p.ni, p.nj, l, p.out, nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int forward(bool gram, const Args<T>& p, int l, void* stream) {
-  if (l < 0 || l > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
+  if (l < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (p.ni <= 0 || p.nj <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (l > MAX_L) return fwd_any(p, l, s);
   if (gram && p.dout) SE_WITH_L(l, (gram_l<T, L, true>(p, s)))
   if (gram) SE_WITH_L(l, (gram_l<T, L, false>(p, s)))
   if (p.dout) SE_WITH_L(l, (fwd_l<T, L, true>(p, s)))
   SE_WITH_L(l, (fwd_l<T, L, false>(p, s)))
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int L>
@@ -464,12 +566,28 @@ int reduce_l(const T* G, const T* D, long long m, T* part, T* grad_ls,
 }
 
 template <typename T>
+int reduce_any(const T* G, const T* D, long long m, int l, T* part,
+               T* grad_ls, cudaStream_t s) {
+  const long long blocks = (m + RED_CHUNK - 1) / RED_CHUNK;
+  if (l > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  se_cov_reduce_any<T><<<dim3(static_cast<unsigned>(blocks), l), RED_THREADS,
+                         0, s>>>(G, D, m, l, part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  se_cov_fold<T><<<l, FOLD_THREADS, 0, s>>>(part, static_cast<int>(blocks),
+                                            l, grad_ls);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int reduce(const T* G, const T* D, long long m, int l, T* part, T* grad_ls,
            void* stream) {
-  if (l < 0 || l > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
+  if (l < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0 || l == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (l > MAX_L) return reduce_any(G, D, m, l, part, grad_ls, s);
   SE_WITH_L(l, (reduce_l<T, L>(G, D, m, part, grad_ls, s)))
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -492,18 +610,19 @@ int probe(const T* u, T z, int m, T* f, T* df, void* stream) {
 // one type: lo_i, hi_i (ni, l); lo_j, hi_j (nj, l); ls (l); norm_i (ni);
 // norm_j (nj); out (ni, nj); dout (l, ni, nj), or null for no derivatives.
 // The Gram entry takes one side: lo, hi (n, l), norm (n), out (n, n), dout
-// (l, n, n) or null. The reduction: G (m), D (l, m), part (ceil(m / 2048),
-// l) scratch, grad_ls (l). Kernels run on `stream`, nothing is allocated
-// here, and the return value is cudaGetLastError() (cudaErrorInvalidValue
-// for l > 8).
+// (l, n, n) or null. gs is an (l, n_i, n_j) scratch for the derivatives
+// when l > 8 (null otherwise). The reduction: G (m), D (l, m), part
+// (ceil(m / 2048), l) scratch, grad_ls (l). Kernels run on `stream`,
+// nothing is allocated here, and the return value is cudaGetLastError()
+// (cudaErrorInvalidValue for derivatives at l > 8 without gs).
 extern "C" int se_cov_launch_f64(const double* lo_i, const double* hi_i,
                                  const double* lo_j, const double* hi_j,
                                  const double* ls, const double* norm_i,
                                  const double* norm_j, double sigma2,
                                  int ni, int nj, int l, double* out,
-                                 double* dout, void* stream) {
+                                 double* dout, double* gs, void* stream) {
   return forward<double>(false, {lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j,
-                                 sigma2, ni, nj, out, dout}, l, stream);
+                                 sigma2, ni, nj, out, dout, gs}, l, stream);
 }
 
 extern "C" int se_cov_launch_f32(const float* lo_i, const float* hi_i,
@@ -511,28 +630,29 @@ extern "C" int se_cov_launch_f32(const float* lo_i, const float* hi_i,
                                  const float* ls, const float* norm_i,
                                  const float* norm_j, double sigma2,
                                  int ni, int nj, int l, float* out,
-                                 float* dout, void* stream) {
+                                 float* dout, float* gs, void* stream) {
   return forward<float>(false, {lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j,
                                 static_cast<float>(sigma2), ni, nj, out,
-                                dout}, l, stream);
+                                dout, gs}, l, stream);
 }
 
 extern "C" int se_cov_gram_launch_f64(const double* lo, const double* hi,
                                       const double* ls, const double* norm,
                                       double sigma2, int n, int l,
                                       double* out, double* dout,
-                                      void* stream) {
+                                      double* gs, void* stream) {
   return forward<double>(true, {lo, hi, lo, hi, ls, norm, norm, sigma2, n,
-                                n, out, dout}, l, stream);
+                                n, out, dout, gs}, l, stream);
 }
 
 extern "C" int se_cov_gram_launch_f32(const float* lo, const float* hi,
                                       const float* ls, const float* norm,
                                       double sigma2, int n, int l,
-                                      float* out, float* dout,
+                                      float* out, float* dout, float* gs,
                                       void* stream) {
   return forward<float>(true, {lo, hi, lo, hi, ls, norm, norm,
-                               static_cast<float>(sigma2), n, n, out, dout},
+                               static_cast<float>(sigma2), n, n, out, dout,
+                               gs},
                         l, stream);
 }
 
@@ -559,18 +679,21 @@ extern "C" int se_cov_probe_f32(const float* u, double z, int m, float* f,
   return probe<float>(u, static_cast<float>(z), m, f, df, stream);
 }
 
-// The launch plans, for the wrapper's tests: out = {Gram tile side, Gram
-// thread rows a block, tiles a side at n, Gram blocks at n, elements a
-// reduction block}; tiles, when not null, gets (ti, tj) of every Gram
-// block. Returns 0.
-extern "C" int se_cov_plan(int n, int* out, int* tiles) {
-  const int t = (n + GT - 1) / GT;
+// The launch plans, for the wrapper's tests, of a Gram matrix of n
+// snippets over l dims: out = {Gram tile side, Gram thread rows a block,
+// tiles a side at n, Gram blocks at n, elements a reduction block, the
+// widest l with its own kernels}; tiles, when not null, gets (ti, tj) of
+// every Gram block. Above that l a Gram matrix runs the general kernel
+// for any width: no Gram blocks (tiles a side and blocks 0). Returns 0.
+extern "C" int se_cov_plan(int n, int l, int* out, int* tiles) {
+  const int t = l <= MAX_L ? (n + GT - 1) / GT : 0;
   const int blocks = t * (t + 1) / 2;
   out[0] = GT;
   out[1] = GR;
   out[2] = t;
   out[3] = blocks;
   out[4] = RED_CHUNK;
+  out[5] = MAX_L;
   if (tiles)
     for (int b = 0; b < blocks; ++b)
       gram_tile(t, b, &tiles[2 * b], &tiles[2 * b + 1]);

@@ -17,8 +17,17 @@ the kernel (``csrc/fused_masked_scan.cu``, entry point ``mpa_launch``; the
 plain version is ``ref.masked_partials_ref``). ``masked_partials_fused`` is
 its drop-in for the gathered-mask aggregation of the sharded placement
 (``repro_torch.aqp.executor.eval_partials_sharded``). On a 0/1 mask it
-gives K1's bits on the same block. ``masked_partials_plan`` is its launch
-plan (grid and scratch), which the CPU tests check.
+gives K1's bits on the same block.
+
+Both take any number of measures: a launch folds at most ``FMS_GROUP``
+(the kernels are templated on the count), so the wrappers launch once per
+group of ``measure_groups(m)``, each reading its measures in place and
+writing its own columns of the (Q, 2M+1) output (``group_columns``). A
+column's bits do not depend on the group it rides in.
+``masked_partials_plan`` is K4's launch plan (grid and scratch), which the
+CPU tests check and the card holds against the built library's. K1's plan
+(path, snippets a lane, grid, shared memory) is decided in the library
+alone: ``fused_scan_plan`` reads it from there.
 """
 from __future__ import annotations
 
@@ -41,15 +50,17 @@ from repro_torch.kernels.fused_masked_scan.ref import (
 )
 
 FMS_CHUNK_T = 256  # tuples one block folds; fixed, so sums depend on T only
-FMS_MAX_MEASURES = 8  # the kernel keeps 2·8+1 accumulators in registers
+FMS_GROUP = 8  # measures one launch folds (the kernels are templated on 0..8)
 MPA_TILE_Q = 128  # K4: snippets of one block (four warps, a lane a snippet)
-MPA_FOLD_WIDTH = 32  # K4's second pass: outputs of one block
+MPA_FOLD_WIDTH = 32  # the second pass: outputs of one block
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "fms_launch": [_P] * 7 + [_I] * 7 + [ctypes.c_double] + [_P] * 3,
-    "mpa_launch": [_P] * 2 + [_I] * 4 + [_P] * 3,
+    "fms_launch": ([_P] * 4 + [_I] + [_P] * 3 + [_I] * 9 + [ctypes.c_double]
+                   + [_P] * 3),
+    "fms_plan": [_I] * 7 + [_P],
+    "mpa_launch": [_P] * 2 + [_I] * 7 + [_P] * 3,
     "mpa_plan": [_I] * 4 + [_P],
 }
 
@@ -62,11 +73,58 @@ def _entry(name):
     return fn
 
 
+def measure_groups(m):
+    """[(first measure, count)] of the launches over ``m`` measures: runs of
+    at most ``FMS_GROUP`` in order; one group of none when ``m`` is 0 (the
+    count column alone)."""
+    if m == 0:
+        return [(0, 0)]
+    return [(j, min(FMS_GROUP, m - j)) for j in range(0, m, FMS_GROUP)]
+
+
+def group_columns(m, first, count):
+    """The columns of the (Q, 2m+1) output, in ``[m, m², 1]`` order, that
+    the launch over measures ``first .. first+count-1`` writes, in its own
+    (Q, 2·count+1) order."""
+    return ([first + j for j in range(count)]
+            + [m + first + j for j in range(count)] + [2 * m])
+
+
+class FusedScanPlan(NamedTuple):
+    """K1's launch for one group of ``m`` measures, as the built library's
+    ``fms_launch`` computes it on the current card. ``path`` 1 keeps every
+    snippet's bounds and category sets in registers with 32-bit words, 2
+    with 64-bit words, 0 is the kernel for any width; ``spl`` snippets a
+    lane; ``rows`` tuples a ring stage. Block ``b`` folds chunk ``b //
+    n_q_tiles`` for snippet tile ``b % n_q_tiles``."""
+
+    path: int
+    spl: int
+    tile_q: int
+    n_chunks: int
+    n_q_tiles: int
+    blocks: int
+    fold_blocks: int
+    smem: int
+    n_sm: int
+    rows: int
+
+
+def fused_scan_plan(t_n, q_n, m, l, c, v):
+    """``fms_plan`` of the built library on the current card: K1's launch
+    over T tuples of L numeric and C categorical dims (V values), Q
+    snippets and ``m`` <= ``FMS_GROUP`` measures."""
+    out = (ctypes.c_int * len(FusedScanPlan._fields))()
+    _entry("fms_plan")(t_n, q_n, m, l, c, v, FMS_CHUNK_T, out)
+    return FusedScanPlan(*out)
+
+
 class MaskedPartialsPlan(NamedTuple):
-    """K4's launch as ``mpa_launch`` computes it. Block ``b`` folds chunk
-    ``b // n_q_tiles`` (``FMS_CHUNK_T`` tuples, K1's chunks) for snippet
-    tile ``b % n_q_tiles``; the second pass sums ``scratch`` over its first
-    axis in ascending order."""
+    """K4's launch for one group of ``m`` measures, as ``mpa_launch``
+    computes it. Block ``b`` folds chunk ``b // n_q_tiles``
+    (``FMS_CHUNK_T`` tuples, K1's chunks) for snippet tile ``b %
+    n_q_tiles``; the second pass sums ``scratch`` over its first axis in
+    ascending order."""
 
     t_n: int
     q_n: int
@@ -86,8 +144,8 @@ class MaskedPartialsPlan(NamedTuple):
 
 
 def masked_partials_plan(t_n, q_n, m):
-    """K4's grid, second pass and scratch shape for a (T, Q) mask and M
-    measures."""
+    """K4's grid, second pass and scratch shape for a (T, Q) mask and one
+    group of ``m`` <= ``FMS_GROUP`` measures."""
     n_chunks = -(-t_n // FMS_CHUNK_T)
     n_q_tiles = -(-q_n // MPA_TILE_Q)
     p = 2 * m + 1
@@ -105,8 +163,17 @@ def masked_partials_plan_of_library(t_n, q_n, m):
 
 
 def _check_grid(what, t_n, q_n):
-    if q_n > 65535 * 128 or t_n >= 2**31 - FMS_CHUNK_T:
+    if t_n >= 2**31 - FMS_CHUNK_T or (
+            -(-t_n // FMS_CHUNK_T) * -(-q_n // 32) >= 2**31):
         raise ValueError(f"{what}: T={t_n}, Q={q_n} exceed the kernel's grid")
+
+
+def _group_scratch(t_n, q_n, m, dev):
+    """One scratch buffer for every group's launch (they run in order on
+    one stream): room for the widest group."""
+    g = max(count for _, count in measure_groups(m))
+    return torch.empty((max(-(-t_n // FMS_CHUNK_T), 1), q_n, 2 * g + 1),
+                       dtype=F64, device=dev)
 
 
 def fused_masked_scan(x, codes, measures, lo, hi, cat, valid=None):
@@ -124,10 +191,6 @@ def fused_masked_scan(x, codes, measures, lo, hi, cat, valid=None):
     c = codes.shape[1]
     q_n, _, v = cat.shape
     m = measures.shape[1]
-    p = 2 * m + 1
-    if m > FMS_MAX_MEASURES:
-        raise ValueError(f"fused_masked_scan takes at most {FMS_MAX_MEASURES}"
-                         f" measures, got {m}")
     check_tensor(x, "x", F64, (t_n, l), dev)
     check_tensor(codes, "codes", torch.int32, (t_n, c), dev)
     check_tensor(measures, "measures", F64, (t_n, m), dev)
@@ -136,22 +199,22 @@ def fused_masked_scan(x, codes, measures, lo, hi, cat, valid=None):
     check_tensor(cat, "cat", torch.bool, (q_n, c, v), dev)
     if valid is not None:
         check_tensor(valid, "valid", F64, (t_n,), dev)
-    n_chunks = -(-t_n // FMS_CHUNK_T)
     _check_grid("fused_masked_scan", t_n, q_n)
-    out = torch.empty((q_n, p), dtype=F64, device=dev)
+    out = torch.empty((q_n, 2 * m + 1), dtype=F64, device=dev)
     if q_n == 0:
         return out
-    scratch = torch.empty((max(n_chunks, 1), q_n, p), dtype=F64, device=dev)
-    err = _entry("fms_launch")(
-        x.data_ptr(), codes.data_ptr(),
-        None if valid is None else valid.data_ptr(),
-        measures.data_ptr(), lo.data_ptr(), hi.data_ptr(), cat.data_ptr(),
-        t_n, q_n, l, c, v, m, FMS_CHUNK_T, RANGE_EPS,
-        scratch.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check_cuda_error(err, "fused_masked_scan")
-    fused_masked_scan.launches += 1
+    scratch = _group_scratch(t_n, q_n, m, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    entry = _entry("fms_launch")
+    for first, count in measure_groups(m):
+        err = entry(
+            x.data_ptr(), codes.data_ptr(),
+            None if valid is None else valid.data_ptr(),
+            measures.data_ptr() + 8 * first, m, lo.data_ptr(), hi.data_ptr(),
+            cat.data_ptr(), t_n, q_n, l, c, v, count, first, m, FMS_CHUNK_T,
+            RANGE_EPS, scratch.data_ptr(), out.data_ptr(), stream)
+        check_cuda_error(err, "fused_masked_scan")
+        fused_masked_scan.launches += 1
     return out
 
 
@@ -184,27 +247,21 @@ def masked_partials(mask, measures):
         raise ValueError(f"masked_partials: unsupported device {dev}")
     t_n, q_n = mask.shape
     m = measures.shape[1]
-    if m > FMS_MAX_MEASURES:
-        raise ValueError(f"masked_partials takes at most {FMS_MAX_MEASURES} "
-                         f"measures, got {m}")
     check_tensor(mask, "mask", F64, (t_n, q_n), dev)
     check_tensor(measures, "measures", F64, (t_n, m), dev)
     _check_grid("masked_partials", t_n, q_n)
-    plan = masked_partials_plan(t_n, q_n, m)
-    if plan.blocks >= 2**31:
-        raise ValueError(f"masked_partials: T={t_n}, Q={q_n} exceed the "
-                         "kernel's grid")
     out = torch.empty((q_n, 2 * m + 1), dtype=F64, device=dev)
     if q_n == 0:
         return out
-    scratch = torch.empty(plan.scratch, dtype=F64, device=dev)
-    err = _entry("mpa_launch")(
-        mask.data_ptr(), measures.data_ptr(), t_n, q_n, m, FMS_CHUNK_T,
-        scratch.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check_cuda_error(err, "masked_partials")
-    masked_partials.launches += 1
+    scratch = _group_scratch(t_n, q_n, m, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    entry = _entry("mpa_launch")
+    for first, count in measure_groups(m):
+        err = entry(mask.data_ptr(), measures.data_ptr() + 8 * first, m, t_n,
+                    q_n, count, first, m, FMS_CHUNK_T, scratch.data_ptr(),
+                    out.data_ptr(), stream)
+        check_cuda_error(err, "masked_partials")
+        masked_partials.launches += 1
     return out
 
 

@@ -4,7 +4,9 @@
 float32 sums: on a CUDA tensor it launches ``csrc/range_mask_agg.cu``
 (float32 compares and accumulation, fixed-order two-pass fold, bitwise the
 same on every run), on a CPU tensor it runs the plain version
-(``ref.range_mask_agg_ref``). Anything else raises.
+(``ref.range_mask_agg_ref``). Anything else raises. It takes any payload
+width: a launch folds at most ``RMA_GROUP`` columns, so the wrapper
+launches once per group of ``payload_groups(P)``, each on its own columns.
 
 ``eval_partials_kernel`` is a drop-in for
 ``repro_torch.aqp.executor.eval_partials``: categorical membership and
@@ -30,11 +32,18 @@ from repro_torch.kernels import (
 from repro_torch.kernels.range_mask_agg.ref import F32, range_mask_agg_ref
 
 RMA_CHUNK_T = 256  # tuples one block folds; fixed, so sums depend on T only
-RMA_MAX_P = 17  # the kernel keeps 17 payload accumulators in registers
+RMA_GROUP = 17  # payload columns one launch keeps in registers
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] * 5 + [ctypes.c_float] + [_P] * 3
+_ARGTYPES = ([_P, _P, _I] + [_P] * 3 + [_I] * 5 + [ctypes.c_float]
+             + [_P] * 2 + [_I, _P])
+
+
+def payload_groups(p):
+    """[(first column, count)] of the launches over ``p`` payload columns:
+    runs of at most ``RMA_GROUP`` in order."""
+    return [(j, min(RMA_GROUP, p - j)) for j in range(0, p, RMA_GROUP)]
 
 
 def _entry():
@@ -59,9 +68,6 @@ def range_mask_agg(x, payload, lo, hi, extra_mask=None):
     t_n, l = x.shape
     q_n = lo.shape[0]
     p = payload.shape[1]
-    if p > RMA_MAX_P:
-        raise ValueError(f"range_mask_agg takes at most {RMA_MAX_P} payload "
-                         f"columns, got {p}")
     if q_n > 65535 * 128 or t_n >= 2**31 - RMA_CHUNK_T:
         raise ValueError(f"range_mask_agg: T={t_n}, Q={q_n} exceed the "
                          "kernel's grid")
@@ -75,18 +81,20 @@ def range_mask_agg(x, payload, lo, hi, extra_mask=None):
     check_tensor(hi, "hi", F32, (q_n, l), dev)
     check_tensor(extra_mask, "extra_mask", F32, (t_n, q_n), dev)
     out = torch.empty((q_n, p), dtype=F32, device=dev)
-    if q_n == 0:
+    if q_n == 0 or p == 0:
         return out
     n_chunks = -(-t_n // RMA_CHUNK_T)
-    scratch = torch.empty((max(n_chunks, 1), q_n, p), dtype=F32, device=dev)
-    err = _entry()(
-        x.data_ptr(), payload.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        extra_mask.data_ptr(), t_n, q_n, l, p, RMA_CHUNK_T, RANGE_EPS,
-        scratch.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check_cuda_error(err, "range_mask_agg")
-    range_mask_agg.launches += 1
+    scratch = torch.empty((max(n_chunks, 1), q_n, min(p, RMA_GROUP)),
+                          dtype=F32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for first, count in payload_groups(p):
+        err = _entry()(
+            x.data_ptr(), payload.data_ptr() + 4 * first, p, lo.data_ptr(),
+            hi.data_ptr(), extra_mask.data_ptr(), t_n, q_n, l, count,
+            RMA_CHUNK_T, RANGE_EPS, scratch.data_ptr(),
+            out.data_ptr() + 4 * first, p, stream)
+        check_cuda_error(err, "range_mask_agg")
+        range_mask_agg.launches += 1
     return out
 
 

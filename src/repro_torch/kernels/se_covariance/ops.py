@@ -20,8 +20,11 @@ antiderivatives once and gives the general kernel's bits.
   which launches the reduction ``grad_ls[k] = Σ G ∘ D_k``. Only ``ls`` may
   require a gradient there: the kernels have no gradient for the ranges,
   the norms or ``sigma2``, so asking for one raises
-  ``NotImplementedError``. They take at most ``SE_MAX_L`` numeric
-  dimensions. A missing ``nvcc``, a failed build or a launch error raises.
+  ``NotImplementedError``. They take any number of numeric dimensions:
+  up to ``SE_MAX_L`` the kernels are templated on it, above it the kernels
+  for any width run (a Gram matrix then takes the general kernel, and the
+  derivatives need an (l, n_i, n_j) scratch). A missing ``nvcc``, a failed
+  build or a launch error raises.
 
 ``se_cov_derivs(...)`` returns ``(K, D)`` from the general kernel with
 derivatives, ``se_cov_gram_derivs(lo, hi, ls, sigma2, norm)`` the same
@@ -36,7 +39,8 @@ Launch counts, one integer a kernel: ``se_cov_matrix.launches`` (the
 general forward), ``se_cov_gram.launches`` (the Gram forward),
 ``se_cov_derivs.launches`` (forwards of either kind that wrote
 derivatives) and ``se_cov_grad.launches`` (the reduction: every backward).
-``se_cov_plan`` is the Gram kernel's launch plan, which the CPU tests check.
+``se_cov_plan`` is the Gram kernel's launch plan, which the CPU tests check
+and the card holds against the built library's.
 """
 from __future__ import annotations
 
@@ -57,18 +61,18 @@ from repro_torch.kernels.se_covariance.ref import (
 SE_GRAM_TILE = 32  # side of the Gram kernel's square tiles (see the .cu)
 SE_GRAM_ROWS = 8  # thread rows of a Gram block (SE_GRAM_TILE / 8 rows each)
 SE_REDUCE_CHUNK = 2048  # elements one block of the reduction sums
-SE_MAX_L = 8  # numeric dimensions the kernels take
+SE_MAX_L = 8  # widest l with kernels of its own; wider l run the any-l ones
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _LL = ctypes.c_longlong
 _ENTRIES = {
-    "se_cov_launch": [_P] * 7 + [_D] + [_I] * 3 + [_P] * 3,
-    "se_cov_gram_launch": [_P] * 4 + [_D] + [_I] * 2 + [_P] * 3,
+    "se_cov_launch": [_P] * 7 + [_D] + [_I] * 3 + [_P] * 4,
+    "se_cov_gram_launch": [_P] * 4 + [_D] + [_I] * 2 + [_P] * 4,
     "se_cov_reduce_launch": [_P, _P, _LL, _I, _P, _P, _P],
     "se_cov_probe": [_P, _D, _I, _P, _P, _P],
-    "se_cov_plan": [_I, _P, _P],
+    "se_cov_plan": [_I, _I, _P, _P],
 }
 _SUFFIX = {torch.float64: "_f64", torch.float32: "_f32"}
 
@@ -84,7 +88,8 @@ def _entry(name, dtype=None):
 
 class SePlan(NamedTuple):
     """The Gram kernel's grid over the upper triangle of square tiles, and
-    the reduction's block size."""
+    the reduction's block size. Above ``SE_MAX_L`` dimensions a Gram matrix
+    runs the general kernel for any width: no Gram blocks."""
 
     n: int
     tile: int
@@ -92,6 +97,7 @@ class SePlan(NamedTuple):
     n_tiles: int
     blocks: int
     reduce_chunk: int
+    max_l: int  # widest l with kernels of its own
 
     def tiles(self, block):
         """(ti, tj), ti <= tj: the tile block ``block`` covers (row by row
@@ -120,21 +126,21 @@ class SePlan(NamedTuple):
                 np.concatenate([a, a]), np.concatenate([b, b]))
 
 
-def se_cov_plan(n):
-    """K3's launch plan for a Gram matrix of n snippets."""
-    t = -(-n // SE_GRAM_TILE)
+def se_cov_plan(n, l=3):
+    """K3's launch plan for a Gram matrix of n snippets over l dims."""
+    t = -(-n // SE_GRAM_TILE) if l <= SE_MAX_L else 0
     return SePlan(n, SE_GRAM_TILE, SE_GRAM_ROWS, t, t * (t + 1) // 2,
-                  SE_REDUCE_CHUNK)
+                  SE_REDUCE_CHUNK, SE_MAX_L)
 
 
-def se_cov_plan_of_library(n):
+def se_cov_plan_of_library(n, l=3):
     """``se_cov_plan`` of the built library (the card's build): ((tile,
-    rows, tiles a side, blocks, reduction chunk), [(ti, tj) of every
-    block])."""
-    out = (ctypes.c_int * 5)()
-    _entry("se_cov_plan")(n, out, None)
-    tiles = (ctypes.c_int * (2 * out[3]))()
-    _entry("se_cov_plan")(n, out, tiles)
+    rows, tiles a side, blocks, reduction chunk, widest templated l),
+    [(ti, tj) of every block])."""
+    out = (ctypes.c_int * 6)()
+    _entry("se_cov_plan")(n, l, out, None)
+    tiles = (ctypes.c_int * max(2 * out[3], 1))()
+    _entry("se_cov_plan")(n, l, out, tiles)
     return tuple(out), [(tiles[2 * b], tiles[2 * b + 1])
                         for b in range(out[3])]
 
@@ -156,9 +162,6 @@ def _checked(lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j):
     dt, dev = lo_i.dtype, lo_i.device
     n_i, l = lo_i.shape
     n_j = lo_j.shape[0]
-    if l > SE_MAX_L:
-        raise ValueError(f"se_cov_matrix: the kernel takes at most {SE_MAX_L}"
-                         f" numeric dimensions, got {l}")
     for name, t, shape in (("lo_i", lo_i, (n_i, l)), ("hi_i", hi_i, (n_i, l)),
                            ("lo_j", lo_j, (n_j, l)), ("hi_j", hi_j, (n_j, l)),
                            ("ls", ls, (l,)), ("norm_i", norm_i, (n_i,)),
@@ -172,24 +175,30 @@ def _stream(dev):
 
 
 def _outputs(n_i, n_j, l, like, derivs):
-    out = torch.empty((n_i, n_j), dtype=like.dtype, device=like.device)
-    d = (torch.empty((l, n_i, n_j), dtype=like.dtype, device=like.device)
-         if derivs else None)
-    return out, d
+    """(out, D or None, the any-l kernels' scratch for D or None)."""
+    def new(*shape):
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+    d = new(l, n_i, n_j) if derivs else None
+    gs = new(l, n_i, n_j) if derivs and l > SE_MAX_L else None
+    return new(n_i, n_j), d, gs
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch_general(lo_i, hi_i, lo_j, hi_j, ls, sigma2, norm_i, norm_j, *,
                     derivs):
     """The general kernel: (out, D or None)."""
     n_i, n_j, l = _checked(lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j)
-    out, d = _outputs(n_i, n_j, l, lo_i, derivs)
+    out, d, gs = _outputs(n_i, n_j, l, lo_i, derivs)
     if n_i == 0 or n_j == 0:
         return out, d
     err = _entry("se_cov_launch", lo_i.dtype)(
         lo_i.data_ptr(), hi_i.data_ptr(), lo_j.data_ptr(), hi_j.data_ptr(),
         ls.data_ptr(), norm_i.data_ptr(), norm_j.data_ptr(), sigma2,
-        n_i, n_j, l, out.data_ptr(), d.data_ptr() if derivs else None,
-        _stream(lo_i.device))
+        n_i, n_j, l, out.data_ptr(), _ptr(d), _ptr(gs), _stream(lo_i.device))
     check_cuda_error(err, "se_cov_matrix")
     se_cov_matrix.launches += 1
     se_cov_derivs.launches += int(derivs)
@@ -199,13 +208,12 @@ def _launch_general(lo_i, hi_i, lo_j, hi_j, ls, sigma2, norm_i, norm_j, *,
 def _launch_gram(lo, hi, ls, sigma2, norm, *, derivs):
     """The Gram kernel: (out, D or None) of the batch against itself."""
     n, _, l = _checked(lo, hi, lo, hi, ls, norm, norm)
-    out, d = _outputs(n, n, l, lo, derivs)
+    out, d, gs = _outputs(n, n, l, lo, derivs)
     if n == 0:
         return out, d
     err = _entry("se_cov_gram_launch", lo.dtype)(
         lo.data_ptr(), hi.data_ptr(), ls.data_ptr(), norm.data_ptr(), sigma2,
-        n, l, out.data_ptr(), d.data_ptr() if derivs else None,
-        _stream(lo.device))
+        n, l, out.data_ptr(), _ptr(d), _ptr(gs), _stream(lo.device))
     check_cuda_error(err, "se_cov_gram")
     se_cov_gram.launches += 1
     se_cov_derivs.launches += int(derivs)

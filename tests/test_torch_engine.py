@@ -213,6 +213,73 @@ def test_package_imports_neither_jax_nor_the_reference():
                    timeout=120)
 
 
+def _cell_keys(plan):
+    """The synopsis names (``state_key``) each cell of ``plan`` reads: AVG
+    its measure's AVG synopsis, COUNT the FREQ synopsis, SUM both."""
+    from repro_torch.core.store import agg_key, state_key
+    from repro_torch.core.types import AVG, FREQ
+
+    agg, mea = _np(plan.snippets.agg), _np(plan.snippets.measure)
+    keys = []
+    for _, _, kind, avg_row, freq_row in plan.cells:
+        names = []
+        if kind in ("AVG", "SUM"):
+            names.append(state_key(agg_key(AVG, mea[avg_row])))
+        if kind in ("COUNT", "SUM"):
+            names.append(state_key(agg_key(FREQ, 0)))
+        keys.append(tuple(names))
+    return keys
+
+
+def count_inverse_rebuilds():
+    """Count, per synopsis name, the appends whose blocked inverse update
+    lost definiteness: the port's ``inv_append_block`` returned None and
+    the port rebuilt Sigma^-1 by Cholesky (``port``); the reference's Schur
+    complement had an eigenvalue <= 0, which it clamps to the jitter
+    (``jax_clamped``), and the appends after which the reference's inverse
+    held a non-finite value (``jax_nonfinite``). Patches both synopsis
+    modules for the rest of the process; returns the live counters."""
+    import collections
+    import threading
+
+    from repro.core import synopsis as jx_syn
+    from repro_torch.core import synopsis as pt_syn
+
+    counts = {k: collections.Counter()
+              for k in ("port", "jax_clamped", "jax_nonfinite")}
+    local = threading.local()
+
+    def insert(orig):
+        def run(self, rows):
+            local.name = self.name
+            return orig(self, rows)
+        return run
+
+    pt_append, jx_append = pt_syn.inv_append_block, jx_syn.inv_append_block
+
+    def port_append(ainv, cols, block, jitter=pt_syn.JITTER):
+        out = pt_append(ainv, cols, block, jitter)
+        if out is None:
+            counts["port"][local.name] += 1
+        return out
+
+    def jax_append(ainv, cols, block, jitter=jx_syn.JITTER):
+        a, c, b = (np.asarray(v) for v in (ainv, cols, block))
+        s = b - (c @ a) @ c.T
+        if np.linalg.eigvalsh(0.5 * (s + s.T)).min() <= 0.0:
+            counts["jax_clamped"][local.name] += 1
+        out = jx_append(ainv, cols, block, jitter)
+        if not np.isfinite(np.asarray(out)).all():
+            counts["jax_nonfinite"][local.name] += 1
+        return out
+
+    for mod, fn in ((pt_syn, port_append), (jx_syn, jax_append)):
+        mod.Synopsis._insert_block_into_model = insert(
+            mod.Synopsis._insert_block_into_model)
+        mod.inv_append_block = fn
+    return counts
+
+
 def coverage_study(jeng, peng, warm, serve, log=None, refit_steps=None):
     """Warm both engines up with ``execute_many(warm)``, ``refit`` them
     (``refit_steps`` Adam steps; None: no refit), then serve ``serve`` one
@@ -235,6 +302,7 @@ def coverage_study(jeng, peng, warm, serve, log=None, refit_steps=None):
     rel = peng.relation
     alpha = float(confidence_multiplier(0.95))
     out = {name: {"covered": [], "estimate": []} for name in results}
+    out["port"]["keys"] = []  # the synopses each of the port's cells reads
     differ = []
     for i, (rj, rp) in enumerate(zip(results["jax"], results["port"])):
         if rj.batches_used != rp.batches_used:
@@ -245,6 +313,7 @@ def coverage_study(jeng, peng, warm, serve, log=None, refit_steps=None):
         exact = rel.exact_answer(rp.plan.snippets)
         truth = Q.assemble_results(rp.plan, exact, torch.zeros_like(exact),
                                    rel.cardinality)
+        out["port"]["keys"].extend(_cell_keys(rp.plan))
         for name, r in (("jax", rj), ("port", rp)):
             assert [(c["group"], c["kind"]) for c in r.cells] == [
                 (e["group"], e["kind"]) for e in truth]
@@ -287,6 +356,7 @@ def main():
         pt_engine.EngineConfig(**cfg), device="cpu")
     jeng = jx_engine.VerdictEngine(jx_w.tpch_like(args.seed, n_rows=args.rows),
                                    jx_engine.EngineConfig(**cfg))
+    rebuilds = count_inverse_rebuilds()
     out, differ = coverage_study(
         jeng, peng, pt_w.tpch_workload(args.seed, peng.schema, args.warm),
         pt_w.tpch_workload(args.seed + 1, peng.schema, args.serve),
@@ -302,6 +372,24 @@ def main():
     print(f"same coverage verdict on {same}/{len(est_j)} cells; queries with "
           f"different batches_used: {differ}; largest relative difference "
           f"of estimates {rel.max() if rel.size else 0.0:.3e}")
+    # Where the estimates part: per synopsis, the inverse rebuilds and the
+    # largest relative difference of the cells that read it.
+    keys = out["port"]["keys"]
+    for what, c in rebuilds.items():
+        print(f"{what} rebuilds/clamps per synopsis: {dict(sorted(c.items()))}")
+    names = sorted({k for ks in keys for k in ks})
+    for name in names:
+        on = np.array([name in ks for ks in keys])
+        print(f"cells reading {name}: {int(on.sum())}, largest relative "
+              f"difference {rel[on].max() if on.any() else 0.0:.3e}, "
+              f"port rebuilds {rebuilds['port'][name]}, reference clamps "
+              f"{rebuilds['jax_clamped'][name]}, non-finite reference "
+              f"inverses {rebuilds['jax_nonfinite'][name]}")
+    clean = np.array([not any(rebuilds["port"][k] for k in ks) for ks in keys])
+    for label, sel in (("no rebuilt synopsis", clean),
+                       ("a rebuilt synopsis", ~clean)):
+        print(f"cells reading {label}: {int(sel.sum())}, largest relative "
+              f"difference {rel[sel].max() if sel.any() else 0.0:.3e}")
 
 
 if __name__ == "__main__":

@@ -397,12 +397,13 @@ def test_cuda_se_cov_gram_is_the_general_kernel_bitwise(n, l, dtype):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 2000])
-def test_k3_library_plan_equals_the_wrappers(n):
-    plan = pt_se.se_cov_plan(n)
-    head, tiles = pt_se.se_cov_plan_of_library(n)
+@pytest.mark.parametrize("n,l", [(1, 3), (31, 3), (32, 3), (33, 3),
+                                 (2000, 3), (70, 8), (70, 9), (33, 12)])
+def test_k3_library_plan_equals_the_wrappers(n, l):
+    plan = pt_se.se_cov_plan(n, l)
+    head, tiles = pt_se.se_cov_plan_of_library(n, l)
     assert head == (plan.tile, plan.rows, plan.n_tiles, plan.blocks,
-                    plan.reduce_chunk)
+                    plan.reduce_chunk, plan.max_l)
     assert tiles == [plan.tiles(b) for b in range(plan.blocks)]
 
 
@@ -540,3 +541,235 @@ print("ok")
     out = subprocess.run([sys.executable, "-c", script], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr[-2000:]
+
+
+# ------------------------------------------------------------ any width
+def _measures(t, m, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.normal(1.0, 2.0, (t, m))).cuda()
+
+
+@pytest.mark.parametrize("m", [9, 12, 17])
+def test_cuda_k1_and_k4_take_any_measure_count(m):
+    """K1 and K4 over more measures than one launch folds: against their
+    plain versions (count exact, rtol 1e-11), bitwise on a repeat, K4
+    bitwise K1, one launch a group of ``measure_groups``, and every measure
+    column (and the count) bitwise what the kernels give on that measure
+    alone."""
+    schema, num, cat, _, _ = _block(60013, seed=m)
+    snips = _random_snippets(schema, 128, np.random.default_rng(m))
+    meas = _measures(60013, m, seed=m + 1)
+    args = (num, cat, meas, snips.lo, snips.hi, snips.cat)
+    before = launch_counts()
+    got = pt_fms.fused_masked_scan(*args)
+    assert (launch_counts()["fused_masked_scan"]
+            == before["fused_masked_scan"] + len(pt_fms.measure_groups(m)))
+    want = fused_masked_scan_ref(num, cat, None, meas, snips.lo, snips.hi,
+                                 snips.cat)
+    assert torch.equal(got, pt_fms.fused_masked_scan(*args))
+    assert torch.equal(got[:, -1], want[:, -1])
+    torch.testing.assert_close(got, want, rtol=1e-11, atol=0)
+    mask = pt_exec.predicate_mask(num, cat, snips)
+    k4 = pt_fms.masked_partials(mask, meas)
+    assert torch.equal(k4, got)
+    for j in range(m):
+        one = meas[:, j:j + 1].contiguous()
+        alone = pt_fms.fused_masked_scan(num, cat, one, snips.lo, snips.hi,
+                                         snips.cat)
+        assert torch.equal(got[:, [j, m + j, 2 * m]], alone), j
+        assert torch.equal(pt_fms.masked_partials(mask, one), alone), j
+
+
+@pytest.mark.parametrize("l,cats,path", [(2, (3, 2, 5), 1), (3, (40, 2), 2),
+                                         (6, (3,), 0), (2, (3, 2, 2, 2, 2), 0),
+                                         (1, (70,), 0), (4, (), 1),
+                                         (0, (4,), 1)])
+def test_cuda_k1_every_path_matches_plain_version_and_k4(l, cats, path):
+    """Each of K1's paths (bounds and 32- or 64-bit category words in
+    registers, or the kernel for any width) against the plain version, K4
+    bitwise K1, and the path the built library takes for the shape."""
+    t, q_n = 3001, 200
+    rng = np.random.default_rng(l * 10 + len(cats))
+    num = torch.as_tensor(rng.uniform(0, 1, (t, l))).cuda()
+    cat = torch.as_tensor(np.array([rng.integers(0, s, t) for s in cats],
+                                   np.int32).reshape(len(cats), t).T
+                          .copy()).cuda()
+    meas = _measures(t, 2, seed=l)
+    v = max(cats, default=1)
+    lo = rng.uniform(0, 0.7, (q_n, l))
+    hi = lo + rng.uniform(0.1, 0.6, (q_n, l))
+    member = rng.uniform(size=(q_n, len(cats), v)) < 0.6
+    args = [torch.as_tensor(a).cuda() for a in (lo, hi, member)]
+    got = pt_fms.fused_masked_scan(num, cat, meas, *args)
+    want = fused_masked_scan_ref(num, cat, None, meas, *args)
+    assert torch.equal(got[:, -1], want[:, -1])
+    assert float(got[:, -1].sum()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-11, atol=0)
+    mask = pt_exec.snippet_mask(num, cat, *args)
+    assert torch.equal(pt_fms.masked_partials(mask, meas), got)
+    assert pt_fms.fused_scan_plan(t, q_n, 2, l, len(cats), v).path == path
+
+
+def test_cuda_k1_rows_do_not_depend_on_q():
+    """Rows 0..127 of a Q = 4096 launch are bitwise the Q = 128 launch."""
+    schema, num, cat, meas, _ = _block(60013, seed=41)
+    snips = _random_snippets(schema, 4096, np.random.default_rng(41))
+    wide = pt_fms.fused_masked_scan(num, cat, meas, snips.lo, snips.hi,
+                                    snips.cat)
+    head = snips[np.arange(128)]
+    narrow = pt_fms.fused_masked_scan(num, cat, meas, head.lo, head.hi,
+                                      head.cat)
+    assert torch.equal(wide[:128], narrow)
+
+
+@pytest.mark.parametrize("t,q_n,m,l,c,v,path,spl", [
+    (60_000, 128, 2, 3, 3, 25, 1, 1),    # the serving shape
+    (60_000, 4096, 2, 3, 3, 25, 1, 2),   # the warm-up's wide batches
+    (60_000, 128, 8, 2, 1, 40, 2, 1),    # 64-bit category words
+    (60_000, 4096, 0, 9, 3, 5, 0, 1),    # wider than the registers take
+    (257, 33, 2, 3, 5, 4, 0, 1),
+    (1, 1, 1, 0, 0, 1, 1, 1)])
+def test_k1_library_plan_covers_every_snippet(t, q_n, m, l, c, v, path,
+                                              spl):
+    """The built library's K1 plan: the path a shape takes, snippets a
+    lane, every snippet in one block, the scratch the wrapper allocates
+    (K4's plan) enough for its chunks, shared memory within the opt-in."""
+    plan = pt_fms.fused_scan_plan(t, q_n, m, l, c, v)
+    assert (plan.path, plan.spl) == (path, spl)
+    assert plan.n_sm == torch.cuda.get_device_properties(
+        0).multi_processor_count
+    assert plan.tile_q % (32 * spl) == 0
+    assert plan.n_q_tiles * plan.tile_q >= q_n > (plan.n_q_tiles - 1) * (
+        plan.tile_q)
+    assert plan.n_chunks == -(-t // pt_fms.FMS_CHUNK_T)
+    assert plan.blocks == plan.n_chunks * plan.n_q_tiles
+    k4 = pt_fms.masked_partials_plan(t, q_n, m)
+    assert k4.scratch == (plan.n_chunks, q_n, 2 * m + 1)
+    assert plan.fold_blocks == k4.fold_blocks
+    assert (plan.smem > 0) == (path > 0) and plan.smem <= 227 * 1024
+    assert plan.rows > 0
+
+
+@pytest.mark.parametrize("p", [19, 35])
+def test_cuda_range_mask_agg_takes_any_payload_width(p):
+    """K5 over more payload columns than one launch folds: against its
+    plain version (rtol 1e-5, f32), bitwise on a repeat, and each column
+    bitwise what the kernel gives on that column alone."""
+    _, num, cat, _, snips = _block(5000, seed=p)
+    f32 = torch.float32
+    payload = _measures(5000, p, seed=p).to(f32)
+    extra = pt_rma.categorical_premask(cat, snips.cat)
+    inputs = (num.to(f32), payload, snips.lo.to(f32), snips.hi.to(f32),
+              extra)
+    before = launch_counts()["range_mask_agg"]
+    got = pt_rma.range_mask_agg(*inputs)
+    assert launch_counts()["range_mask_agg"] == before + len(
+        pt_rma.payload_groups(p))
+    assert torch.equal(got, pt_rma.range_mask_agg(*inputs))
+    torch.testing.assert_close(got, range_mask_agg_ref(*inputs), rtol=1e-5,
+                               atol=1e-5)
+    for j in range(p):
+        alone = pt_rma.range_mask_agg(inputs[0], payload[:, j:j + 1],
+                                      *inputs[2:])
+        assert torch.equal(got[:, j:j + 1], alone), j
+
+
+def _k3_in_kernel_order(args):
+    """The plain version's clamped per-dimension integrals multiplied in
+    the kernels' order ((g0 g1) g2 ...) and scaled as they scale."""
+    from repro_torch.kernels.se_covariance.ref import se_double_integral
+
+    lo_i, hi_i, lo_j, hi_j, ls, sigma2, norm_i, norm_j = args
+    g = torch.clamp(se_double_integral(lo_i[:, None, :], hi_i[:, None, :],
+                                       lo_j[None], hi_j[None], ls), min=0.0)
+    seq = g[..., 0]
+    for k in range(1, g.shape[-1]):
+        seq = seq * g[..., k]
+    return sigma2 * seq / (norm_i[:, None] * norm_j[None, :])
+
+
+@pytest.mark.parametrize("l", [9, 12])
+def test_cuda_se_cov_takes_any_l(l):
+    """K3 above its templated widths, under its three contracts: the
+    general forward's f64 per-dimension integrals are the plain version's
+    (bitwise in the kernels' product order; rtol 1e-12 against the plain
+    forward, f32 at the reference's 2e-5 / 1e-7); the Gram forward is the
+    general one bitwise; D is ``se_cov_derivs_ref`` bitwise. The gradient
+    against autograd of the plain version at rtol 1e-9, the Gram route's
+    bitwise the general route's."""
+    for dtype, rtol, atol in ((torch.float64, 1e-12, 0.0),
+                              (torch.float32, 2e-5, 1e-7)):
+        args = _se_args(70, 45, l, seed=l, dtype=dtype)
+        got = pt_se.se_cov_matrix(*args)
+        assert torch.equal(got, pt_se.se_cov_matrix(*args))
+        torch.testing.assert_close(got, se_cov_matrix_ref(*args), rtol=rtol,
+                                   atol=atol)
+        if dtype == torch.float64:
+            assert torch.equal(got, _k3_in_kernel_order(args))
+        sq = _se_args(70, 70, l, seed=l + 1, dtype=dtype)
+        lo, hi, ls, norm = sq[0], sq[1], sq[4], sq[6]
+        assert torch.equal(pt_se.se_cov_gram(lo, hi, ls, 1.7, norm),
+                           pt_se.se_cov_matrix(lo, hi, lo, hi, ls, 1.7, norm,
+                                               norm))
+    args = _se_args(70, 45, l, seed=l + 2)
+    k_mat, d = pt_se.se_cov_derivs(*args)
+    assert torch.equal(k_mat, pt_se.se_cov_matrix(*args))
+    assert torch.equal(d, se_cov_derivs_ref(*args)[1])
+    g_out = torch.as_tensor(np.random.default_rng(l).normal(size=(70, 45)),
+                            device="cuda")
+    torch.testing.assert_close(pt_se.se_cov_grad(*args, g_out),
+                               se_cov_grad_ref(*args, g_out), rtol=1e-9,
+                               atol=0.0)
+    sq = _se_args(70, 70, l, seed=l + 3)
+    lo, hi, ls, norm = sq[0], sq[1], sq[4], sq[6]
+    k_g, d_g = pt_se.se_cov_gram_derivs(lo, hi, ls, 1.7, norm)
+    assert torch.equal(d_g, pt_se.se_cov_derivs(lo, hi, lo, hi, ls, 1.7,
+                                                norm, norm)[1])
+    z = ls.clone().requires_grad_(True)
+    g_sq = torch.as_tensor(np.random.default_rng(l + 1).normal(size=(70, 70)),
+                           device="cuda")
+    (via,) = torch.autograd.grad(pt_se.se_cov_gram(lo, hi, z, 1.7, norm), z,
+                                 g_sq)
+    assert torch.equal(via, pt_se.se_cov_grad(lo, hi, lo, hi, ls, 1.7, norm,
+                                              norm, g_sq))
+
+
+def test_refit_learning_sigma_on_the_card_lowers_every_nll():
+    """``refit(learn_sigma=True)`` on the card: every synopsis' NLL falls,
+    every Adam step through K3's Gram forward with derivatives and its
+    reduction, and the fitted parameters are finite."""
+    from repro_torch.aqp import workload as pt_w
+    from repro_torch.core import learning
+    from repro_torch.core.engine import EngineConfig, VerdictEngine
+
+    rel = pt_w.make_relation(seed=4, n_rows=8_000, n_num=2, cat_sizes=(4,),
+                             n_measures=2, device="cuda")
+    eng = VerdictEngine(rel, EngineConfig(sample_rate=0.15, n_batches=4,
+                                          capacity=160, seed=0))
+    eng.execute_many(pt_w.make_workload(2, rel.schema, 16,
+                                        agg_kinds=("AVG", "COUNT", "SUM")))
+    eng.drain()
+    fits = sum(syn.n >= 3 for syn in eng.store.values())
+    assert fits > 1
+    hists, orig = [], learning.fit
+
+    def spy(*a, **kw):
+        assert kw.get("learn_sigma") is True
+        params, hist = orig(*a, **kw)
+        hists.append((hist.numpy(), params))
+        return params, hist
+
+    learning.fit = spy
+    before = launch_counts()
+    try:
+        eng.refit(steps=20, learn_sigma=True)
+    finally:
+        learning.fit = orig
+    after = launch_counts()
+    assert len(hists) == fits
+    for hist, params in hists:
+        assert np.isfinite(hist).all() and hist[-1] < hist[0], hist
+        assert all(bool(torch.isfinite(t).all())
+                   for t in (params.log_ls, params.log_sigma2, params.mu))
+    for k in ("se_cov_gram", "se_cov_derivs", "se_cov_grad"):
+        assert after[k] - before[k] >= 20 * fits, (k, before, after)

@@ -15,7 +15,8 @@ Tolerances:
     steps at the same indices;
   - ``fit`` on the lengthscale-recovery setup (n = 80, 200 steps): history
     and fitted ``log_ls`` at rtol 1e-6 (measured: history 2.7e-9, ``log_ls``
-    6.1e-13 relative), plus the reference test's own assertions;
+    6.1e-13 relative), plus the reference test's own assertions; with
+    ``learn_sigma=True`` the same, and the learned sigma^2 at rtol 1e-6;
   - append statistics: equal; adjusted answers: equal;
   - ``VerdictEngine.refit`` then ``apply_append`` on the same synopses:
     params at rtol 1e-9 and stored answers (theta, beta2) at rtol 1e-12
@@ -211,10 +212,11 @@ def test_adam_matches_reference_with_a_non_finite_region():
     np.testing.assert_allclose(_np(pp["x"]), np.asarray(jp["x"]), rtol=1e-12)
 
 
-def test_fit_recovers_lengthscales_like_reference():
-    """``test_core_engine.py::test_learning_recovers_lengthscales`` in both
-    packages: same history and fitted lengthscales, and the reference
-    test's own assertions on the port's fit."""
+def _recovery_setup():
+    """``test_core_engine.py::test_learning_recovers_lengthscales``'s data:
+    80 snippets over two dims, answers drawn from a GP with lengthscales
+    (0.15, 0.6) and sigma^2 2, noise 0.05. Returns both packages'
+    (snippets, schema) and the answers."""
     rng = np.random.default_rng(0)
     jsch = jx_types.Schema(num_lo=(0.0, 0.0), num_hi=(1.0, 1.0),
                            cat_sizes=(), n_measures=1)
@@ -238,15 +240,28 @@ def test_fit_recovers_lengthscales_like_reference():
     chol = np.linalg.cholesky(k + 1e-10 * np.eye(80))
     beta = 0.05
     theta = chol @ rng.normal(size=80) + beta * rng.normal(size=80)
+    return (jb, jsch), (pb, psch), theta, beta
+
+
+def _fit_both(learn_sigma):
+    (jb, jsch), (pb, psch), theta, beta = _recovery_setup()
     jfit, jhist = jx_learning.fit(jb, jnp.asarray(theta),
                                   jnp.full((80,), beta**2), jsch, steps=200,
-                                  lr=0.1)
+                                  lr=0.1, learn_sigma=learn_sigma)
     pfit, phist = pt_learning.fit(pb, torch.as_tensor(theta),
                                   torch.full((80,), beta**2, dtype=F64), psch,
-                                  steps=200, lr=0.1)
+                                  steps=200, lr=0.1, learn_sigma=learn_sigma)
     np.testing.assert_allclose(phist.numpy(), np.asarray(jhist), rtol=1e-6)
     np.testing.assert_allclose(_np(pfit.log_ls), np.asarray(jfit.log_ls),
                                rtol=1e-6)
+    return pfit, phist, jfit
+
+
+def test_fit_recovers_lengthscales_like_reference():
+    """``test_core_engine.py::test_learning_recovers_lengthscales`` in both
+    packages: same history and fitted lengthscales, and the reference
+    test's own assertions on the port's fit."""
+    pfit, phist, jfit = _fit_both(learn_sigma=False)
     np.testing.assert_allclose(float(pfit.log_sigma2),
                                float(jfit.log_sigma2), rtol=1e-12)
     ls = np.exp(_np(pfit.log_ls))
@@ -254,6 +269,20 @@ def test_fit_recovers_lengthscales_like_reference():
     assert ls[0] < ls[1]
     assert 0.05 < ls[0] < 0.45
     assert ls[1] > 0.3
+
+
+def test_fit_learning_sigma_like_reference():
+    """``fit(learn_sigma=True)``, as the reference's benchmarks train: the
+    same loss history and fitted ``log_ls`` as the reference's (rtol 1e-6,
+    as above), sigma^2 learned alike (rtol 1e-6), the NLL lower at the end
+    than at the start, and sigma^2 moved off its analytic start."""
+    pfit, phist, jfit = _fit_both(learn_sigma=True)
+    np.testing.assert_allclose(float(pfit.log_sigma2),
+                               float(jfit.log_sigma2), rtol=1e-6)
+    assert float(phist[-1]) < float(phist[0])
+    (_, _), (pb, _), theta, _ = _recovery_setup()
+    start, _ = pt_cov.analytic_sigma2_mu(pb, torch.as_tensor(theta))
+    assert abs(float(pfit.log_sigma2) - float(torch.log(start))) > 1e-3
 
 
 def test_analytic_sigma2_mu_matches_reference():

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Tiling variants of the masked-partials (K4), GP-improve (K2) and
-SE-covariance Gram (K3) kernels.
+"""Tiling variants of the fused-scan (K1), masked-partials (K4),
+GP-improve (K2) and SE-covariance Gram (K3) kernels.
 
-    python3 tools/kernel_sweep.py [k4] [k2] [k3]
+    python3 tools/kernel_sweep.py [k1] [k4] [k2] [k3]
 
 Needs one NVIDIA H100 and nvcc. Each variant is the checked-in source with
 some constants or lines replaced, built into its own library under
 ``build/kernel_sweep/`` (one nvcc per variant, all started together) and
-called through its C entry point on the same inputs: K4 at T = 60,013 and
-Q in {128, 4096} on a random 0/1 mask, K2 at C = 2000 and Q in {8, 128} in
+called through its C entry point on the same inputs: K1 at T = 60,000 and
+Q in {128, 4096} on a TPC-H-like block and workload snippets (the shapes
+of chip_smoke.py's phase 2), K4 at T = 60,013 and Q in {128, 4096} on a
+random 0/1 mask, K2 at C = 2000 and Q in {8, 128} in
 float64 and float32, K3's Gram forward at n = 2000, l = 3 in float64, with
 and without derivatives. For each it prints the CUDA-event time (median of
 20 samples of 10 back-to-back calls), the profiler's device time per
@@ -34,6 +36,33 @@ from repro_torch.kernels import CSRC_DIR, NVCC_FLAGS, nvcc_path  # noqa: E402
 OUT = os.path.join(ROOT, "build", "kernel_sweep")
 P, I = ctypes.c_void_p, ctypes.c_int
 
+K1_STMT_RANGE = re.escape(
+    "hit = hit & (f[R::X + k] >= lo_r[s][k]) &\n"
+    "                (f[R::X + k] <= hi_r[s][k]);")
+K1_VARIANTS = {
+    "checked-in (4 warps, 3 stages of 32, 1 snippet a lane at Q = 128 and "
+    "2 at Q = 4096)": {},
+    "1 snippet a lane at every Q": {r"FMS_WIDE_WARPS = 16;":
+                                    "FMS_WIDE_WARPS = 1 << 30;"},
+    "2 snippets a lane at every Q": {r"FMS_WIDE_WARPS = 16;":
+                                     "FMS_WIDE_WARPS = 0;"},
+    "4 snippets a lane on a wide grid": {r"FMS_SPL_WIDE = 2;":
+                                         "FMS_SPL_WIDE = 4;"},
+    "each category word's bit tested apart": {
+        re.escape("bits = and_opaque(bits, word[s][k] >> code[k]);"):
+            "bits &= word[s][k] >> code[k];"},
+    "2 stages": {r"FMS_STAGES = 3;": "FMS_STAGES = 2;"},
+    "4 stages": {r"FMS_STAGES = 3;": "FMS_STAGES = 4;"},
+    "2 warps a block": {r"FMS_WARPS = 4;": "FMS_WARPS = 2;"},
+    "3 numeric dims in registers (no padded compare at L = 3)": {
+        r"FMS_LB = 4;": "FMS_LB = 3;"},
+    "no range compares (wrong sums)": {K1_STMT_RANGE: ";"},
+    "the count alone, no measure updates (wrong sums)": {
+        re.escape("acc_s[s][j] = __fma_rn(w, f[R::MV + j], acc_s[s][j]);"):
+            ";",
+        re.escape("acc_q[s][j] = __fma_rn(w, f[R::MQ + j], acc_q[s][j]);"):
+            ";"},
+}
 WIDE = r"using Wide = Tiling<4, 2, 2, 4, 16, 2>;"
 NARROW = r"using Narrow = Tiling<1, 2, 8, 1, 32, 2>;"
 K4_VARIANTS = {
@@ -89,6 +118,8 @@ def log(*a):
 
 
 def build(src, variants):
+    """One library a variant; raises if a pattern does not match exactly
+    once or nvcc fails."""
     os.makedirs(OUT, exist_ok=True)
     text = (CSRC_DIR / f"{src}.cu").read_text()
     procs = []
@@ -157,6 +188,81 @@ def report(what, name, call, out, ref):
         + f"); bitwise the checked-in source's: {torch.equal(out, ref)}")
 
 
+def k1_inputs(q_ns, t_n=60_000, seed=0):
+    """A T-tuple block of a TPC-H-like relation and the first Q distinct
+    snippets of a workload, for each Q (chip_smoke.py's phase 2 shapes)."""
+    from repro_torch.aqp import queries as Q
+    from repro_torch.aqp.plan import SnippetInterner
+    from repro_torch.aqp.workload import tpch_like, tpch_workload
+
+    rel = tpch_like(seed, n_rows=600_000)
+    rows = np.random.default_rng(seed).permutation(rel.cardinality)[:t_n]
+    blk = rel.take(rows)
+    interner = SnippetInterner(rel.schema)
+    for q in tpch_workload(seed, rel.schema, 2000):
+        groups = [(g,) for g in range(3)] if q.groupby else [()]
+        interner.intern(Q.decompose(rel.schema, q, groups).snippets)
+    fused = interner.fused()
+    return blk, {q_n: fused[np.arange(q_n)].to("cuda") for q_n in q_ns}
+
+
+def sweep_k1():
+    from repro_torch.kernels import RANGE_EPS
+    from repro_torch.kernels.fused_masked_scan import ops as fms
+
+    libs = build("fused_masked_scan", K1_VARIANTS)
+    blk, snips = k1_inputs((128, 4096))
+    x, codes, meas = blk.num_normalized, blk.cat, blk.measures
+    t_n, l = x.shape
+    c, m = codes.shape[1], meas.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    for q_n, s in snips.items():
+        v = s.cat.shape[2]
+        scratch = torch.empty(fms.masked_partials_plan(t_n, q_n, m).scratch,
+                              dtype=torch.float64, device="cuda")
+        ref = None
+        for lib, name in zip(libs, K1_VARIANTS):
+            fn = lib.fms_launch
+            fn.argtypes = fms._ARGTYPES["fms_launch"]
+            out = torch.empty((q_n, 2 * m + 1), dtype=torch.float64,
+                              device="cuda")
+
+            def call(fn=fn, out=out, s=s):
+                err = fn(x.data_ptr(), codes.data_ptr(), None,
+                         meas.data_ptr(), m, s.lo.data_ptr(), s.hi.data_ptr(),
+                         s.cat.data_ptr(), t_n, q_n, l, c, v, m, 0, m,
+                         fms.FMS_CHUNK_T, RANGE_EPS, scratch.data_ptr(),
+                         out.data_ptr(), stream)
+                if err:
+                    raise RuntimeError(f"fms_launch returned {err}")
+
+            call()
+            torch.cuda.synchronize()
+            ref = out.clone() if ref is None else ref
+            report(f"K1 T={t_n} Q={q_n}", name, call, out, ref)
+        # Other chunks through the checked-in library: another fold order,
+        # so other bits by design (and K4 would have to follow).
+        fn = libs[0].fms_launch
+        for chunk in (128, 512):
+            out = torch.empty((q_n, 2 * m + 1), dtype=torch.float64,
+                              device="cuda")
+            part = torch.empty((-(-t_n // chunk), q_n, 2 * m + 1),
+                               dtype=torch.float64, device="cuda")
+
+            def call(chunk=chunk, out=out, part=part, s=s):
+                err = fn(x.data_ptr(), codes.data_ptr(), None,
+                         meas.data_ptr(), m, s.lo.data_ptr(), s.hi.data_ptr(),
+                         s.cat.data_ptr(), t_n, q_n, l, c, v, m, 0, m, chunk,
+                         RANGE_EPS, part.data_ptr(), out.data_ptr(), stream)
+                if err:
+                    raise RuntimeError(f"fms_launch returned {err}")
+
+            call()
+            torch.cuda.synchronize()
+            report(f"K1 T={t_n} Q={q_n}", f"chunks of {chunk} (another fold "
+                   "order)", call, out, ref)
+
+
 def sweep_k4():
     libs = build("fused_masked_scan", K4_VARIANTS)
     rng = np.random.default_rng(0)
@@ -175,13 +281,13 @@ def sweep_k4():
         ref = None
         for lib, name in zip(libs, K4_VARIANTS):
             fn = lib.mpa_launch
-            fn.argtypes = [P, P, I, I, I, I, P, P, P]
+            fn.argtypes = [P, P] + [I] * 7 + [P, P, P]
             out = torch.empty((q_n, 2 * m + 1), dtype=torch.float64,
                               device="cuda")
 
             def call(fn=fn, out=out):
-                err = fn(mask.data_ptr(), meas.data_ptr(), t_n, q_n, m, 256,
-                         scratch.data_ptr(), out.data_ptr(), stream)
+                err = fn(mask.data_ptr(), meas.data_ptr(), m, t_n, q_n, m, 0,
+                         m, 256, scratch.data_ptr(), out.data_ptr(), stream)
                 if err:
                     raise RuntimeError(f"mpa_launch returned {err}")
 
@@ -295,7 +401,8 @@ def main():
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())
-    sweeps = {"k4": sweep_k4, "k2": sweep_k2, "k3": sweep_k3}
+    sweeps = {"k1": sweep_k1, "k4": sweep_k4, "k2": sweep_k2,
+              "k3": sweep_k3}
     chosen = sys.argv[1:] or list(sweeps)
     t0 = time.perf_counter()
     for name in chosen:
