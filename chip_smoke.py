@@ -14,9 +14,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      is even bit for bit, the general and Gram forwards, the forward with
      derivatives and the lengthscale gradient reduced from them, and a
      bound from the FP64 instructions ``cuobjdump -sass`` finds in one
-     antiderivative); then past the widths one launch takes: the fused
-     scan and masked partials at 12 measures, range-mask aggregation at 35
-     payload columns, the SE covariance at 12 numeric dims;
+     antiderivative; range-mask aggregation at 5 and 35 payload columns);
+     then past the widths one launch takes: the fused scan and masked
+     partials at 12 measures, the fused scan's kernel for any width on
+     phase 4's 9 x 9 relation (and on the main path's block padded with
+     neutral dims, bitwise the register path), its kernel for category
+     sets past a block's shared memory (a dim of 30,000 values), the SE
+     covariance at 12 numeric dims;
   3. the main path at a size users run: TPC-H SF1 lineitem cardinality
      (6,001,215 rows), capacity 2000, a 2000-query warm-up through
      ``execute_many`` and 200 queries served one by one through ``execute``;
@@ -42,6 +46,7 @@ device record ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -135,20 +140,39 @@ def _short(name):
     return name.replace("(anonymous namespace)::", "").split("(")[0][:48]
 
 
-def device_ms_per_call(label, fn, n=10):
+def device_ms_per_call(label, fn, n=10, windows=3, launches=None):
     """Device time per call of ``fn`` from the profiler, with its split by
-    kernel: each kernel's mean time over the launches the profiler recorded,
-    times its launches a call (the profiler may miss a launch of the n);
-    None when the profiler saw no device activity."""
-    _, _, per = device_profile(fn, n)
-    if not per:
+    kernel: over ``windows`` profiler windows of ``n`` calls each, each
+    kernel's median over the windows of its mean time over the launches
+    the window recorded, times its launches a call. ``launches`` gives the
+    launches a call of the kernels whose name starts with a key (default
+    1); the profiler may miss launches, so it only raises that count where
+    it recorded more. A window that recorded nothing is run again, up to
+    two more times; None when none recorded device activity."""
+    per_window, tries = [], 0
+    while len(per_window) < windows and tries < windows + 2:
+        tries += 1
+        _, _, per = device_profile(fn, n)
+        if per:
+            per_window.append(per)
+    if not per_window:
         log(f"  {label}: the profiler recorded no device activity "
             "(device time not measured)")
         return None
-    each = {k: 1e3 * t / c * max(1, round(c / n)) for k, (c, t) in per.items()}
-    log(f"  {label}: device {sum(each.values()):.6f} ms per call ("
-        + ", ".join(f"{_short(k)} {each[k]:.6f} ms, {per[k][0]} of {n} calls "
-                    "recorded" for k in sorted(each, key=lambda k: -each[k]))
+
+    def a_call(name, recorded):
+        given = [k for pre, k in (launches or {}).items()
+                 if _short(name).removeprefix("void ").startswith(pre)]
+        return max(given[0] if given else 1, -(-recorded // n))
+
+    names = set().union(*per_window)
+    each = {k: float(np.median([1e3 * w[k][1] / w[k][0] * a_call(k, w[k][0])
+                                for w in per_window if k in w]))
+            for k in names}
+    log(f"  {label}: device {sum(each.values()):.6f} ms per call (median of "
+        f"{len(per_window)} windows of {n} calls; "
+        + ", ".join(f"{_short(k)} {each[k]:.6f} ms"
+                    for k in sorted(each, key=lambda k: -each[k]))
         + ")")
     return sum(each.values())
 
@@ -229,13 +253,19 @@ def phase_build():
         log(f"-- nvcc {name}:\n{out.strip()}")
     log(f"built {sorted(logs) or 'nothing (up to date)'} in {build_s:.2f} s")
     # The kernels redesigned for Hopper (K1 at the main path's M = 2 with
-    # 32-bit category words, K4, K2, and K3 at the main path's l = 3 in
-    # f64): what ptxas gave each entry function (dynamic shared memory is
-    # set at launch: K1 45 KB a block at M = 2, 55 KB at 2 snippets a lane;
-    # K4 24 KB a block at M = 2, K2 86 KB in f64 and 43 KB in f32, the K3
-    # Gram kernel's transpose 8.4 KB, 33.8 KB with derivatives at l = 3).
-    for src, keys in (("fused_masked_scan", ("mpa_", "fms_partials<2, 1,")),
+    # 32-bit category words and for any width at M = 8 and 1, K4, K2, K5 at
+    # P = 5 and 35, and K3 at the main path's l = 3 in f64): what ptxas gave
+    # each entry function (dynamic shared memory is set at launch: K1 45 KB
+    # a block at M = 2, 55 KB at 2 snippets a lane, 93 KB for any width at
+    # L = 9, M = 8; K4 24 KB a block at M = 2, K2 86 KB in f64 and 43 KB in
+    # f32, K5 76 KB at P = 5; the K3 Gram kernel's transpose 8.4 KB, 33.8
+    # KB with derivatives at l = 3).
+    for src, keys in (("fused_masked_scan", ("mpa_", "fms_partials<2, 1,",
+                                             "fms_partials_any<8, 1>",
+                                             "fms_partials_any<1, 1>")),
                       ("gp_batch_infer", ("gp_",)),
+                      ("range_mask_agg", ("rma_partials<5>",
+                                          "rma_partials<18>", "rma_fold")),
                       ("se_covariance", ("<double, 3",))):
         for fn, what in ptxas_summary(logs.get(src, "")).items():
             if any(k in fn for k in keys):
@@ -491,70 +521,98 @@ def check_k4(rel, seed):
 
 
 def check_k5(rel, seed):
+    """K5 on one SF1 sample batch's block at Q = 128: P = 5 (the [m, m^2,
+    1] payload of the relation's 2 measures) and P = WIDE_P (of 17 measures
+    made from them, one launch). Count exact, sums rtol 1e-5, bitwise on a
+    repeat, one launch a call, and at P = WIDE_P every column bitwise the
+    kernel on it alone. Returns {P: record}."""
     import torch
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.range_mask_agg import ops as rma
     from repro_torch.kernels.range_mask_agg.ref import range_mask_agg_ref
 
-    log("-- K5 range_mask_agg (f32): count exact, sums/sumsq rtol 1e-5, "
-        "repeat bitwise")
+    log(f"-- K5 range_mask_agg (f32) at P = 5 and P = {WIDE_P}: count exact, "
+        "sums/sumsq rtol 1e-5, repeat bitwise, one launch a call, every "
+        "column bitwise the kernel on it alone")
     rows = np.random.default_rng(seed + 8).permutation(rel.cardinality)
     blk = rel.take(rows[:SF1_BATCH_T])
     f32 = torch.float32
     x = blk.num_normalized.to(f32)
     meas = blk.measures.to(f32)
-    payload = torch.cat([meas, meas * meas, meas.new_ones((len(meas), 1))], 1)
+    m17 = meas[:, :1].repeat(1, 17) + torch.arange(17, device=rel.device)
     t_n, l = x.shape
-    p = payload.shape[1]
     q_n = 128
     s = _fused_snippets(rel, seed, 2000, q_n).to(rel.device)
     lo, hi = s.lo.to(f32), s.hi.to(f32)
     extra = rma.categorical_premask(blk.cat, s.cat)
-    args = (x, payload, lo, hi, extra)
-    got = rma.range_mask_agg(*args)
-    again = rma.range_mask_agg(*args)
-    want = range_mask_agg_ref(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(got, again), "K5 is not bitwise across runs"
-    assert torch.equal(got[:, -1], want[:, -1]), "K5 count differs"
-    assert torch.allclose(got[:, :-1], want[:, :-1], rtol=1e-5, atol=0.0), (
-        float(((got - want).abs() / want.abs().clamp(min=1e-30)).max()))
-    err = float((got - want).abs().max())
-    ms = time_ms(lambda: rma.range_mask_agg(*args), inner=10)
-    plain = time_ms(lambda: range_mask_agg_ref(*args))
-    n_bytes = 4 * (t_n * l + t_n * p + 2 * q_n * l + t_n * q_n + q_n * p)
-    n_ops = t_n * q_n * (2 * l + 2 * p)
-    rec = report("range_mask_agg", f"T={t_n} Q={q_n}", ms, plain, n_bytes,
-                 n_ops, "float32", err)
-    rec["device_ms"] = device_ms_per_call(
-        "range_mask_agg Q=128", lambda: rma.range_mask_agg(*args))
-    log("  library_ms is null for range_mask_agg: no single PyTorch call "
-        "computes range compares times a mask folded against a payload")
-    return rec
+    records = {}
+    for m in (meas, m17):
+        payload = torch.cat([m, m * m, m.new_ones((t_n, 1))], 1)
+        p = payload.shape[1]
+        args = (x, payload, lo, hi, extra)
+        before = launch_counts()["range_mask_agg"]
+        got = rma.range_mask_agg(*args)
+        assert launch_counts()["range_mask_agg"] == before + 1
+        again = rma.range_mask_agg(*args)
+        want = range_mask_agg_ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), "K5 is not bitwise across runs"
+        assert torch.equal(got[:, -1], want[:, -1]), "K5 count differs"
+        assert torch.allclose(got[:, :-1], want[:, :-1], rtol=1e-5,
+                              atol=0.0), float(
+            ((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+        if p == WIDE_P:
+            for j in range(p):
+                alone = rma.range_mask_agg(x, payload[:, j:j + 1].contiguous(),
+                                           lo, hi, extra)
+                assert torch.equal(got[:, j:j + 1], alone), f"K5 column {j}"
+        plan = rma.range_mask_agg_plan(t_n, q_n, l, p)
+        log(f"  range_mask_agg P={p}: one launch, {plan.groups} column "
+            f"group(s) of {plan.group_width}, {plan.blocks} blocks of "
+            f"{plan.tiles} snippet tiles x {plan.groups_a_block} group(s), "
+            f"{plan.smem} B of shared memory a block")
+        err = float((got - want).abs().max())
+        ms = time_ms(lambda: rma.range_mask_agg(*args), inner=10)
+        plain = time_ms(lambda: range_mask_agg_ref(*args))
+        n_bytes = 4 * (t_n * l + t_n * p + 2 * q_n * l + t_n * q_n + q_n * p)
+        n_ops = t_n * q_n * (2 * l + 2 * p)
+        rec = report("range_mask_agg", f"T={t_n} Q={q_n} P={p}", ms, plain,
+                     n_bytes, n_ops, "float32", err)
+        rec["device_ms"] = dev_ms = device_ms_per_call(
+            f"range_mask_agg P={p}", lambda: rma.range_mask_agg(*args))
+        rec["launches_a_call"] = 1
+        if dev_ms:
+            log(f"  range_mask_agg P={p}: device {dev_ms:.6f} ms, device "
+                f"share of bound {rec['bound_ms'] / dev_ms:.4f}, achieved "
+                f"{n_bytes / dev_ms / 1e9:.4f} TB/s")
+        records[p] = rec
+    log("  every column at P=%d bitwise the kernel on that column alone; "
+        "library_ms is null for range_mask_agg: no single PyTorch call "
+        "computes range compares times a mask folded against a payload"
+        % WIDE_P)
+    return records
 
 
 WIDE_M = 12  # measures of phase 2's wide K1 / K4 shape (two launches)
-WIDE_P = 35  # payload columns of the wide K5 shape (three launches)
+WIDE_P = 35  # payload columns of the wide K5 shape (one launch)
 WIDE_L = 12  # numeric dims of the wide K3 shapes (the kernels for any l)
 WIDE_REL = dict(n_num=9, n_measures=9)  # phase 4's wide relation
 
 
 def check_wide(rel, seed):
     """Phase 2 past the widths one launch takes: K1 and K4 at 12 measures,
-    K1's kernel for any width on phase 4's wide relation, K5 at 35 payload
-    columns, K3 at l = 12, at the main path's T and Q."""
+    K1's kernel for any width on phase 4's wide relation, K3 at l = 12, at
+    the main path's T and Q (K5's wide shape is check_k5's)."""
     import torch
     from repro_torch.kernels.fused_masked_scan import ops as fms
     from repro_torch.kernels.fused_masked_scan.ref import (
         fused_masked_scan_ref, masked_partials_ref)
     from repro_torch.aqp.executor import predicate_mask
-    from repro_torch.kernels.range_mask_agg import ops as rma
-    from repro_torch.kernels.range_mask_agg.ref import range_mask_agg_ref
 
     log(f"-- wide shapes: K1 and K4 at M={WIDE_M} (count exact, rtol 1e-11, "
         "K4 bitwise K1, every measure's columns and the count bitwise the "
-        f"kernels on that measure alone), K5 at P={WIDE_P} (rtol 1e-5, "
-        f"every column bitwise the kernel on it alone), K3 at l={WIDE_L} "
-        "under its three bitwise contracts")
+        f"kernels on that measure alone), K3 at l={WIDE_L} under its three "
+        "bitwise contracts")
     dev = rel.device
     rng = np.random.default_rng(seed + 21)
     rows = rng.permutation(rel.cardinality)[:60_000]
@@ -596,7 +654,8 @@ def check_wide(rel, seed):
         + q_n * p * 8, t_n * q_n * (2 * l + c + 2 * p), "float64",
         float((got - want).abs().max()))
     records["k1"]["device_ms"] = device_ms_per_call(
-        f"fused_masked_scan M={WIDE_M}", lambda: fms.fused_masked_scan(*args))
+        f"fused_masked_scan M={WIDE_M}", lambda: fms.fused_masked_scan(*args),
+        launches={"mpa_fold": len(fms.measure_groups(WIDE_M))})
     payload = torch.cat([meas, meas * meas, meas.new_ones((t_n, 1))], 1)
     records["k4"] = report(
         "masked_partials", f"T={t_n} Q={q_n} M={WIDE_M}",
@@ -606,52 +665,74 @@ def check_wide(rel, seed):
         "float64", float((k4 - want).abs().max()),
         library_ms=time_ms(lambda: mask.T @ payload, inner=10))
     records["k4"]["device_ms"] = device_ms_per_call(
-        f"masked_partials M={WIDE_M}", lambda: fms.masked_partials(mask, meas))
+        f"masked_partials M={WIDE_M}", lambda: fms.masked_partials(mask, meas),
+        launches={"mpa_fold": len(fms.measure_groups(WIDE_M))})
     del mask
-    records["k1_any"] = check_k1_any(seed, dev)
-    # K5 at 35 payload columns: [m, m^2, 1] of 17 measures, in f32.
-    f32 = torch.float32
-    m17 = meas[:, :1].repeat(1, 17) + torch.arange(17, device=dev)
-    pay = torch.cat([m17, m17 * m17, m17.new_ones((t_n, 1))], 1).to(f32)
-    assert pay.shape[1] == WIDE_P
-    extra = rma.categorical_premask(codes, s.cat)
-    kargs = (x.to(f32), pay, s.lo.to(f32), s.hi.to(f32), extra)
-    k5 = rma.range_mask_agg(*kargs)
-    k5_want = range_mask_agg_ref(*kargs)
-    torch.cuda.synchronize()
-    assert torch.equal(k5, rma.range_mask_agg(*kargs))
-    assert torch.equal(k5[:, -1], k5_want[:, -1])
-    assert torch.allclose(k5, k5_want, rtol=1e-5, atol=1e-5)
-    for j in range(WIDE_P):
-        alone = rma.range_mask_agg(kargs[0], pay[:, j:j + 1].contiguous(),
-                                   *kargs[2:])
-        assert torch.equal(k5[:, j:j + 1], alone), f"K5 column {j}"
-    log(f"  K5 at P={WIDE_P}: {len(rma.payload_groups(WIDE_P))} launches; "
-        "every column bitwise the kernel on that column alone")
-    records["k5"] = report(
-        "range_mask_agg", f"T={t_n} Q={q_n} P={WIDE_P}",
-        time_ms(lambda: rma.range_mask_agg(*kargs), inner=10),
-        time_ms(lambda: range_mask_agg_ref(*kargs), reps=10),
-        4 * (t_n * l + t_n * WIDE_P + 2 * q_n * l + t_n * q_n
-             + q_n * WIDE_P), t_n * q_n * (2 * l + 2 * WIDE_P), "float32",
-        float((k5 - k5_want).abs().max()))
-    records["k5"]["device_ms"] = device_ms_per_call(
-        f"range_mask_agg P={WIDE_P}", lambda: rma.range_mask_agg(*kargs))
+    records.update(check_k1_any(rel, seed))
     records.update(check_k3_wide(seed, dev))
     return records
 
 
-def check_k1_any(seed, dev):
-    """K1's kernel for any width (``fms_partials_any``) at the shape phase 4's
-    wide relation gives it: a 60,000-tuple block of that relation (9 numeric
-    dims, 9 measures: two launches, over 8 measures and 1) and 128 snippets
-    of its warm-up workload. Count exact, rtol 1e-11 against the plain
-    version, bitwise on a repeat, K4 bitwise K1."""
+def _pad_neutral(x, codes, lo, hi, cat, n_num, v):
+    """A block and its snippets with numeric dims up to ``n_num`` (x = 0
+    against [-inf, inf]) and one more categorical dim of ``v`` values
+    (every tuple's code 0, every snippet's set full), the other dims' sets
+    widened to ``v`` values with no member past their own: the same
+    predicate on a shape K1's registers do not take."""
+    import torch
+
+    t_n, l = x.shape
+    q_n = lo.shape[0]
+    inf = torch.full((q_n, n_num - l), float("inf"), dtype=lo.dtype,
+                     device=lo.device)
+    sets = cat.new_zeros((q_n, cat.shape[1] + 1, v))
+    sets[:, :-1, :cat.shape[2]] = cat
+    sets[:, -1] = True
+    return (torch.cat([x, x.new_zeros((t_n, n_num - l))], 1),
+            torch.cat([codes, codes.new_zeros((t_n, 1))], 1).contiguous(),
+            torch.cat([lo, -inf], 1), torch.cat([hi, inf], 1), sets)
+
+
+def check_k1_any(rel, seed):
+    """K1's kernel for any width (``fms_partials_any``, path 0) at the shape
+    phase 4's wide relation gives it: a 60,000-tuple block of that relation
+    (9 numeric dims, 9 measures: two launches, over 8 measures and 1) and
+    128 snippets of its warm-up workload. Count exact, rtol 1e-11 against
+    the plain version, bitwise on a repeat, K4 bitwise K1; and phase 2's
+    main-path block padded with neutral dims to 9 numeric dims and a
+    categorical dim of 70 values takes path 0 and gives the register
+    path's bits on the unpadded block. The floors from the SASS of its
+    tuple loop."""
     import torch
     from repro_torch.aqp.executor import predicate_mask
     from repro_torch.aqp.workload import make_relation, make_workload
     from repro_torch.kernels.fused_masked_scan import ops as fms
     from repro_torch.kernels.fused_masked_scan.ref import fused_masked_scan_ref
+
+    dev = rel.device
+    # The main path's block (register path), and padded (any width).
+    rows = np.random.default_rng(seed + 25).permutation(rel.cardinality)
+    nb = rel.take(rows[:60_000])
+    ns = _fused_snippets(rel, seed, 2000, 128).to(dev)
+    narrow = (nb.num_normalized, nb.cat, nb.measures, ns.lo, ns.hi, ns.cat)
+    padded = _pad_neutral(nb.num_normalized, nb.cat, ns.lo, ns.hi, ns.cat,
+                          WIDE_REL["n_num"], 70)
+    t_n = nb.measures.shape[0]
+    m_n = nb.measures.shape[1]
+    assert fms.fused_scan_plan(t_n, 128, m_n, nb.num_normalized.shape[1],
+                               nb.cat.shape[1], ns.cat.shape[2]).path == 1
+    assert fms.fused_scan_plan(t_n, 128, m_n, WIDE_REL["n_num"],
+                               padded[1].shape[1], 70).path == 0
+    want_n = fms.fused_masked_scan(*narrow)
+    got_p = fms.fused_masked_scan(*padded[:2], nb.measures, *padded[2:])
+    torch.cuda.synchronize()
+    assert float(want_n[:, -1].sum()) > 0
+    assert torch.equal(got_p, want_n), (
+        "K1 for any width on the padded block is not the register path's "
+        "bits")
+    log("  K1 for any width on the main path's block padded to "
+        f"L={WIDE_REL['n_num']} and a categorical dim of 70 values: path 0, "
+        "bitwise the register path on the unpadded block")
 
     wrel = make_relation(seed + 5, 600_000, **WIDE_REL)
     rows = np.random.default_rng(seed + 24).permutation(wrel.cardinality)
@@ -661,9 +742,10 @@ def check_k1_any(seed, dev):
     c, m = codes.shape[1], meas.shape[1]
     s = _fused_snippets(wrel, seed + 6, 200, 128, make_workload).to(dev)
     q_n, v = 128, s.cat.shape[2]
-    paths = {fms.fused_scan_plan(t_n, q_n, count, l, c, v).path
-             for _, count in fms.measure_groups(m)}
-    assert paths == {0}, f"the wide block takes K1's paths {paths}"
+    plans = [fms.fused_scan_plan(t_n, q_n, count, l, c, v)
+             for _, count in fms.measure_groups(m)]
+    assert {p.path for p in plans} == {0}, (
+        f"the wide block takes K1's paths {[p.path for p in plans]}")
     args = (x, codes, meas, s.lo, s.hi, s.cat)
     got = fms.fused_masked_scan(*args)
     want = fused_masked_scan_ref(x, codes, None, meas, s.lo, s.hi, s.cat)
@@ -677,8 +759,10 @@ def check_k1_any(seed, dev):
         ((got - want).abs() / want.abs().clamp(min=1e-300)).max())
     assert torch.equal(k4, got), "K4 on the wide block is not K1's bits"
     log(f"  K1 for any width (L={l}, C={c}, V={v}, M={m}: "
-        f"{len(fms.measure_groups(m))} launches of fms_partials_any): count "
-        "exact, rtol 1e-11, bitwise on a repeat, K4 bitwise K1")
+        f"{len(plans)} launches of fms_partials_any, "
+        + ", ".join(f"{p.blocks} blocks of {p.tile_q // 32} warps with "
+                    f"{p.smem} B of shared memory" for p in plans)
+        + "): count exact, rtol 1e-11, bitwise on a repeat, K4 bitwise K1")
     p = 2 * m + 1
     rec = report(
         "fms_partials_any", f"T={t_n} Q={q_n} L={l} M={m}",
@@ -688,8 +772,93 @@ def check_k1_any(seed, dev):
         t_n * (8 * l + 4 * c + 8 * m) + q_n * (16 * l + c * v) + q_n * p * 8,
         t_n * q_n * (2 * l + c + 2 * p), "float64",
         float((got - want).abs().max()))
+    rec["device_ms"] = dev_ms = device_ms_per_call(
+        f"fms_partials_any L={l} M={m}", lambda: fms.fused_masked_scan(*args),
+        launches={"mpa_fold": len(plans)})
+    # The floors: instructions (4 schedulers an SM, one a clock) and the
+    # FP64 pipe (16 lanes a scheduler: two clocks a warp instruction), for
+    # every launch's live warps over every tuple.
+    clock = max_sm_clock_hz()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = -(-q_n // 32)
+    issue = fp64 = 0.0
+    for (_, count), plan in zip(fms.measure_groups(m), plans):
+        per, fp, _ = k1_any_sass_count(count, plan.words, plan.rows)
+        if per is None:
+            issue = fp64 = None
+            break
+        scale = t_n * warps / (n_sm * 4 * clock) * 1e3
+        issue += per * scale
+        fp64 += 2 * fp * scale
+    rec["instruction_floor_ms"] = issue
+    rec["fp64_floor_ms"] = fp64
+    if issue is not None:
+        floor = max(issue, fp64)
+        log(f"  fms_partials_any: instruction floor {issue:.6f} ms, FP64-pipe "
+            f"floor {fp64:.6f} ms over both launches ({t_n} tuples x {warps} "
+            f"warps a chunk / ({n_sm} SMs x 4 schedulers x "
+            f"{clock / 1e9:.3f} GHz))" + (
+                f"; the device time reaches {floor / dev_ms:.4f} of the "
+                "larger" if dev_ms else ""))
+    return {"k1_any": rec, "k1_global": check_k1_global(nb, ns, seed)}
+
+
+GLOBAL_V = 30_000  # values of the categorical dim that takes K1's path 3
+
+
+def check_k1_global(blk, s, seed):
+    """K1's kernel for shapes whose staging outgrows a block's shared
+    memory (``fms_partials_global``, path 3): phase 2's main-path block
+    and snippets with one more categorical dim of GLOBAL_V values (codes
+    uniform, each snippet's set ~70% of them). Count exact, rtol 1e-11
+    against the plain version, bitwise on a repeat, K4 bitwise K1."""
+    import torch
+    from repro_torch.aqp.executor import snippet_mask
+    from repro_torch.kernels.fused_masked_scan import ops as fms
+    from repro_torch.kernels.fused_masked_scan.ref import fused_masked_scan_ref
+
+    rng = np.random.default_rng(seed + 26)
+    x, meas = blk.num_normalized, blk.measures
+    t_n, l = x.shape
+    q_n, c0, v0 = s.cat.shape
+    dev = x.device
+    extra = torch.as_tensor(rng.integers(0, GLOBAL_V, (t_n, 1)),
+                            dtype=blk.cat.dtype, device=dev)
+    codes = torch.cat([blk.cat, extra], 1).contiguous()
+    sets = s.cat.new_zeros((q_n, c0 + 1, GLOBAL_V))
+    sets[:, :-1, :v0] = s.cat
+    sets[:, -1] = torch.as_tensor(rng.uniform(size=(q_n, GLOBAL_V)) < 0.7,
+                                  device=dev)
+    c, m = c0 + 1, meas.shape[1]
+    plan = fms.fused_scan_plan(t_n, q_n, m, l, c, GLOBAL_V)
+    assert plan.path == 3, f"C={c} V={GLOBAL_V} takes K1's path {plan.path}"
+    args = (x, codes, meas, s.lo, s.hi, sets)
+    got = fms.fused_masked_scan(*args)
+    want = fused_masked_scan_ref(x, codes, None, meas, s.lo, s.hi, sets)
+    k4 = fms.masked_partials(snippet_mask(x, codes, s.lo, s.hi, sets), meas)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fms.fused_masked_scan(*args)), (
+        "fms_partials_global is not bitwise across runs")
+    assert torch.equal(got[:, -1], want[:, -1]), "fms_partials_global: count"
+    assert float(got[:, -1].sum()) > 0
+    assert torch.allclose(got, want, rtol=1e-11, atol=0.0), float(
+        ((got - want).abs() / want.abs().clamp(min=1e-300)).max())
+    assert torch.equal(k4, got), "K4 on the path-3 block is not K1's bits"
+    log(f"  K1 from global memory (L={l}, C={c}, V={GLOBAL_V}, M={m}: path "
+        f"3, {plan.blocks} blocks, no shared memory): count exact, rtol "
+        "1e-11, bitwise on a repeat, K4 bitwise K1")
+    p = 2 * m + 1
+    rec = report(
+        "fms_partials_global", f"T={t_n} Q={q_n} C={c} V={GLOBAL_V} M={m}",
+        time_ms(lambda: fms.fused_masked_scan(*args), inner=10),
+        time_ms(lambda: fused_masked_scan_ref(x, codes, None, meas, s.lo,
+                                              s.hi, sets), reps=5),
+        t_n * (8 * l + 4 * c + 8 * m) + q_n * (16 * l + c * GLOBAL_V)
+        + q_n * p * 8, t_n * q_n * (2 * l + c + 2 * p), "float64",
+        float((got - want).abs().max()))
     rec["device_ms"] = device_ms_per_call(
-        f"fms_partials_any L={l} M={m}", lambda: fms.fused_masked_scan(*args))
+        f"fms_partials_global C={c} V={GLOBAL_V}",
+        lambda: fms.fused_masked_scan(*args))
     return rec
 
 
@@ -760,6 +929,22 @@ def check_k3_wide(seed, dev):
     want_g = se_cov_grad_ref(*full, g_out)
     assert torch.equal(via, se.se_cov_grad(*full, g_out))
     assert torch.allclose(via, want_g, rtol=1e-9, atol=0.0), (via, want_g)
+    # The floors from the FP64-pipe instructions of one antiderivative
+    # (phase 2's K3 count; the kernels for any l evaluate the same one).
+    per_anti = k3_sass_counts()
+    for key, antiderivs, derivs in (("k3_general", 4 * l * 128 * n, False),
+                                    ("k3_derivs", 4 * l * n * (n + 1) // 2,
+                                     True)):
+        c = per_anti[1 if derivs else 0]
+        rec = records[key]
+        rec["sass_bound_ms"] = floor = (
+            None if c is None else c * antiderivs / FP64_PIPE_LANES_PER_S * 1e3)
+        if floor is not None:
+            log(f"  {key} l={l}: SASS-count floor {floor:.6f} ms ({c} "
+                f"FP64-pipe instructions x {antiderivs} antiderivatives / "
+                f"{FP64_PIPE_LANES_PER_S:.3g} a s)" + (
+                    f"; the device time reaches {floor / rec['device_ms']:.4f}"
+                    " of it" if rec.get("device_ms") else ""))
     log(f"  K3 at l={l}: general 128x{n} bitwise the plain per-dimension "
         "integrals in the kernels' order; Gram bitwise general; D bitwise "
         f"se_cov_derivs_ref; gradient within {_rel(via, want_g):.3e} of "
@@ -897,6 +1082,7 @@ def sass_fp64_paths(lines):
     return static, fewest, most, ops
 
 
+@functools.lru_cache(maxsize=None)
 def k3_sass_counts():
     """FP64-pipe instructions of one antiderivative in the built K3
     library, (F alone, F with dF/dz): each the fewest on a storing path of
@@ -975,13 +1161,9 @@ def sass_loop_body(lines):
     return sum(ops.values()), ops, inner
 
 
-def k1_sass_count(spl, rows):
-    """Instructions a warp issues per staged tuple on K1's main path: the
-    stage loop of ``fms_partials<2, 1, spl>`` (two measures, 32-bit
-    category words, ``spl`` snippets a lane) in the built library, over the
-    ``rows`` tuples a stage it folds (ring upkeep included), and that loop's
-    opcodes. (None, {}) where cuobjdump or the parse fails: the instruction
-    floor is then not measured."""
+def _k1_sass_functions():
+    """{mangled name: SASS lines} of every kernel in the built K1/K4
+    library (``cuobjdump -sass``), or None where that fails."""
     import re
 
     from repro_torch import kernels
@@ -992,8 +1174,8 @@ def k1_sass_count(spl, rows):
             [tool, "-sass", str(kernels.library_path("fused_masked_scan"))],
             capture_output=True, text=True, check=True, timeout=300).stdout
     except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-        log(f"  cuobjdump -sass failed ({e}): K1's floor not measured")
-        return None, {}
+        log(f"  cuobjdump -sass failed ({e}): K1's floors not measured")
+        return None
     funcs, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -1002,6 +1184,19 @@ def k1_sass_count(spl, rows):
             funcs[name] = []
         elif name is not None:
             funcs[name].append(line)
+    return funcs
+
+
+def k1_sass_count(spl, rows):
+    """Instructions a warp issues per staged tuple on K1's main path: the
+    stage loop of ``fms_partials<2, 1, spl>`` (two measures, 32-bit
+    category words, ``spl`` snippets a lane) in the built library, over the
+    ``rows`` tuples a stage it folds (ring upkeep included), and that loop's
+    opcodes. (None, {}) where cuobjdump or the parse fails: the instruction
+    floor is then not measured."""
+    funcs = _k1_sass_functions()
+    if funcs is None:
+        return None, {}
     what = f"fms_partials<2, 1, {spl}>"
     name = next((k for k in funcs if f"fms_partialsILi2ELi1ELi{spl}EE" in k),
                 None)
@@ -1018,6 +1213,95 @@ def k1_sass_count(spl, rows):
         f"instructions for {rows} tuples, {per_tuple:.3f} a tuple "
         f"per warp; by opcode {dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
     return per_tuple, ops
+
+
+FP64_PIPE = ("DSETP", "DFMA", "DADD", "DMUL", "DMNMX")
+
+
+def k1_any_sass_count(m, words, rows):
+    """Instructions a warp issues per tuple in ``fms_partials_any<m,
+    words>`` at phase 4's shape (L = 9, C = 1, V = 8). The stage loop (the
+    largest loop) holds two versions of the tuple loop (the loops inside it
+    with DFMAs; a tuple's copies told by their count, 2m a tuple): one for
+    L within the registers' dims, with no loop inside, which this shape
+    runs, and one with the loop over the dims past them. A tuple costs the
+    first version over its copies plus the rest of the stage loop, both
+    versions left out, over the ``rows`` tuples of a stage (the ring's
+    copy loops counted once a stage). Returns (all, FP64-pipe instructions
+    a tuple, opcodes of the tuple loop run), or (None, None, {})."""
+    import re
+
+    funcs = _k1_sass_functions()
+    name = None if funcs is None else next(
+        (k for k in funcs if f"fms_partials_anyILi{m}ELi{words}EE" in k),
+        None)
+    what = f"fms_partials_any<{m}, {words}>"
+    if name is None or m < 1:
+        log(f"  SASS: no {what} read: its floor not measured")
+        return None, None, {}
+    ins, at = [], {}
+    for line in funcs[name]:
+        mt = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if not mt:
+            continue
+        addr = int(mt.group(1), 16)
+        at[addr] = len(ins)
+        tgt = re.search(r"\b0x([0-9a-f]+)\s*$", mt.group(4))
+        ins.append((addr, mt.group(3).split(".")[0],
+                    int(tgt.group(1), 16) if tgt else None))
+    loops = [(at[t], i) for i, (addr, op, t) in enumerate(ins)
+             if op == "BRA" and t is not None and t < addr and t in at]
+    if not loops:
+        return None, None, {}
+    stage = max(loops, key=lambda ab: ab[1] - ab[0])
+    inside = [ab for ab in loops if stage[0] <= ab[0] and ab[1] <= stage[1]
+              and ab != stage]
+    top = [ab for ab in inside if not any(
+        o != ab and o[0] <= ab[0] and ab[1] <= o[1] for o in inside)]
+
+    def opcodes(lo, hi):
+        ops = {}
+        for _, op, _ in ins[lo:hi + 1]:
+            if op != "NOP":
+                ops[op] = ops.get(op, 0) + 1
+        return ops
+
+    folds = [ab for ab in top if opcodes(*ab).get("DFMA", 0)]
+    flat = [ab for ab in folds if not any(
+        o != ab and ab[0] <= o[0] and o[1] <= ab[1] for o in inside)]
+    if len(flat) != 1:
+        log(f"  SASS of {what}: {len(flat)} tuple loops with no loop inside "
+            "in its stage loop, not one: floor not measured")
+        return None, None, {}
+    f_ops, s_ops = opcodes(*flat[0]), opcodes(*stage)
+    copies = f_ops["DFMA"] / (2 * m)
+    if copies < 1 or copies != int(copies):
+        log(f"  SASS of {what}: {f_ops['DFMA']} DFMA in its tuple loop, not "
+            "a whole number of tuples: floor not measured")
+        return None, None, f_ops
+    rest = dict(s_ops)
+    for ab in folds:
+        for k, v in opcodes(*ab).items():
+            rest[k] -= v
+
+    def fp64(ops):
+        return sum(ops.get(k, 0) for k in FP64_PIPE)
+
+    n_f, n_s, n_r = sum(f_ops.values()), sum(s_ops.values()), sum(
+        rest.values())
+    per = n_f / copies + n_r / rows
+    fp = fp64(f_ops) / copies + fp64(rest) / rows
+    def top(ops, n=None):
+        return dict(sorted(((k, v) for k, v in ops.items() if v),
+                           key=lambda kv: -kv[1])[:n])
+
+    log(f"  SASS of {what}: stage loop {n_s} instructions, of which the "
+        f"tuple loop run {n_f} for {int(copies)} tuples and {n_r} outside "
+        f"the tuple loops for {rows}: {per:.3f} instructions and {fp:.3f} "
+        "FP64-pipe instructions a tuple a warp; outside the tuple loops by "
+        f"opcode {top(rest, 12)}; tuple loop by opcode {top(f_ops)}")
+    return per, fp, f_ops
 
 
 def max_sm_clock_hz():
@@ -2284,6 +2568,13 @@ def main():
              launches=wide_counts["fused_masked_scan"],
              shape=f"T=60000 Q=128 L={WIDE_REL['n_num']} "
                    f"M={WIDE_REL['n_measures']} f64", **wide["k1_any"]),
+        # No driven path has a relation whose category sets outgrow a
+        # block's shared memory: phase 2 alone launches this kernel.
+        dict(name="fms_partials_global", route="cuda",
+             source="src/repro_torch/csrc/fused_masked_scan.cu",
+             replaces=K1_REPLACES, launches=0,
+             shape=f"T=60000 Q=128 C=4 V={GLOBAL_V} M=2 f64",
+             **wide["k1_global"]),
         dict(name="gp_batch_infer", route="cuda",
              source="src/repro_torch/csrc/gp_batch_infer.cu",
              replaces=K2_REPLACES, launches=counts["gp_batch_infer"],
@@ -2296,8 +2587,8 @@ def main():
         dict(name="range_mask_agg", route="cuda",
              source="src/repro_torch/csrc/range_mask_agg.cu",
              replaces=K5_REPLACES, launches=k5_launches,
-             shape=f"T={SF1_BATCH_T} Q=128 f32", **k5,
-             wide=at(f"T=60000 Q=128 P={WIDE_P} f32", wide["k5"])),
+             shape=f"T={SF1_BATCH_T} Q=128 P=5 f32", **k5[5],
+             wide=at(f"T={SF1_BATCH_T} Q=128 P={WIDE_P} f32", k5[WIDE_P])),
         dict(name="se_cov_matrix", route="cuda",
              source="src/repro_torch/csrc/se_covariance.cu",
              replaces=K3_REPLACES, launches=counts["se_cov_matrix"],
@@ -2326,7 +2617,8 @@ def main():
         "is one cuBLAS DGEMM, mask.T @ [m, m^2, 1]")
     log("launches: K1, K2 and K3's general and Gram forwards in phase 3's "
         "serve stream; K1's kernel for any width in phase 4's wide CUDA "
-        "engine; K4 in phase 5's mesh session; K5 over the SF1 "
+        "engine; K1 from global memory on no driven path (0); K4 in "
+        "phase 5's mesh session; K5 over the SF1 "
         "batches; K3's forward with derivatives and its reduction in phase "
         f"6's refit (which also ran {refit_counts['se_cov_gram']} Gram "
         "forwards, derivatives included)")

@@ -1,6 +1,7 @@
 // Fused masked scan for Hopper (sm_90a): the scan of every sample batch.
-// This file holds K1 (fms_partials and fms_partials_any, entry point
-// fms_launch) and K4 (mpa_partials, entry point mpa_launch, further down).
+// This file holds K1 (fms_partials, fms_partials_any and
+// fms_partials_global, entry point fms_launch) and K4 (mpa_partials, entry
+// point mpa_launch, further down).
 // Both fold in one fixed order and share the second pass (mpa_fold), so K4
 // gives K1's bits on the same block.
 //
@@ -70,9 +71,9 @@
 //  * The snippets' category sets (Q x C x V bytes) reach shared memory in
 //    the ring's first group and become bit words there.
 //  * The ordered sum over chunks is K4's second pass (mpa_fold).
-//  * Other shapes (L > 4, C > 4 or V > 64) take fms_partials_any: one lane
-//    a snippet, every value read where it lies (L1), the same fold. No
-//    width is refused.
+//  * Other shapes (L > 4, C > 4 or V > 64) take fms_partials_any, the same
+//    skeleton and fold (below); shapes whose staging outgrows a block's
+//    shared memory take fms_partials_global. No width is refused.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -334,10 +335,85 @@ __global__ void __launch_bounds__(32 * FMS_WARPS)
   }
 }
 
-// K1 at any width (L > FMS_LB, C > FMS_CB or V > FMS_VMAX): one lane a
-// snippet, a block of 32 FMS_WARPS snippets of one chunk, every value read
-// where it lies; the same fold, so the same bits as fms_partials.
-template <int M>
+// K1 at any width (L > FMS_LB, C > FMS_CB or V > FMS_VMAX): the register
+// path's skeleton and fold, with what the shape forces changed.
+//
+// What bounds it: instruction issue and latency. Per (tuple, snippet) pair
+// it does 2L f64 compares (2 * FMS_ANY_LR with the padded dims) and 2M + 1
+// f64 adds; at L = 9, M = 8 the tuple loop issues ~101 instructions a
+// tuple a warp, 44 of them on the FP64 pipe (two issue cycles each: 16
+// FP64 lanes a scheduler), and the serving shape's 940 warps are 1.8 a
+// scheduler.
+//
+// Design (redesigned for Hopper):
+//  * A warp owns (one chunk) x (a tile of 32 snippets), one lane a snippet;
+//    a block is up to FMS_WARPS such warps on neighbouring tiles of one
+//    chunk (fewer where the shape's staging needs more shared memory).
+//  * Tuples stream through a per-warp ring of FMS_STAGES stages of FMS_ROWS
+//    records [x (L, padded to at least FMS_ANY_LR and to an even count),
+//    (m_j, m_j^2) pairs (M), valid, pad] of doubles (a stride that spreads
+//    the lanes' copies over the banks), filled with cp.async
+//    (lane i copies tuple i), and their codes (C, padded to 4) beside them.
+//    m^2 is formed once a tuple (__dmul_rn) by the lane that copied it when
+//    its stage lands, which also zeroes the weight of a tuple with a code
+//    outside [0, V): the loop then tests no code's range.
+//  * Bounds: the widened bounds (lo - eps, hi + eps, formed once) of the
+//    first FMS_ANY_LR dims stay in registers (padded dims compare x = 0
+//    against [-inf, inf]); the rest sit in shared memory as a (lo, hi)
+//    pair a lane a dim, [dim][lane], read as one 16-byte load.
+//  * Categories: where the register path's words hold them (C <= 4 and
+//    V <= 64: VW 1 or 2, 32- or 64-bit words), they are those words, in
+//    registers, tested the same way. Else (VW 0) each snippet's set of each
+//    dim becomes ceil(V/32) 32-bit words in shared memory, [dim][word][lane]
+//    (a lane's word of a dim is bank-conflict free), tested as
+//    (word[code >> 5] >> (code & 31)) & 1. A loop over dims in the tuple
+//    loop (shared-memory bounds, VW 0) holds each tuple's loads behind the
+//    last one's: the registers keep the common shapes free of it.
+//  * The predicate is straight-line: the compares and the category bits
+//    are ANDed with no early exit, so the lanes never diverge.
+//  * M is a template argument (at most MAX_M a launch); the fold is K1's:
+//    fma(w, m, acc), fma(w, m^2, acc), acc_n += w over each chunk in
+//    ascending order from 0.0, then mpa_fold. A ragged stage is zero-filled
+//    and adds exactly nothing, as on the register path.
+constexpr int FMS_ANY_LR = 10;  // numeric dims whose bounds sit in registers
+
+// The x slots of an any-width record: L padded to FMS_ANY_LR, even.
+__host__ __device__ inline int any_lx(int L) {
+  return (max(L, FMS_ANY_LR) + 1) / 2 * 2;
+}
+// The category words of the any-width path: 1 or 2 (32- or 64-bit words in
+// registers, as the register path's), 0 (words in shared memory).
+__host__ __device__ inline int any_vw(int C, int V) {
+  if (C > FMS_CB) return 0;
+  if (C == 0 || V <= 32) return 1;
+  return V <= FMS_VMAX ? 2 : 0;
+}
+// Doubles of an any-width record: x, the (m, m^2) pairs, valid and a pad,
+// even (16-byte pairs) and not a multiple of 4, so that the lanes' 8-byte
+// copies into their records spread over the banks (a stride of 32 words
+// would put every lane on one bank).
+__host__ __device__ inline int any_rec(int L, int M) {
+  const int size = any_lx(L) + 2 * M + 2;
+  return size % 4 ? size : size + 2;
+}
+// Codes a tuple holds in the ring (an int4 when the words are registers).
+__host__ __device__ inline int any_cp(int C, int V) {
+  return any_vw(C, V) ? FMS_CB : (C + 3) / 4 * 4;
+}
+// 32-bit words of one category set (at least one: a dim of no values).
+__host__ __device__ inline int any_nw(int V) { return max(1, (V + 31) / 32); }
+
+// Shared memory of one warp of fms_partials_any<M, VW>: its ring of
+// records and codes, the bounds past the registers and the category words.
+__host__ __device__ inline size_t fms_any_warp_smem(int m, int l, int c,
+                                                    int v) {
+  const size_t rec = any_rec(l, m);
+  return FMS_STAGES * FMS_ROWS * (rec * sizeof(double) + any_cp(c, v) * 4) +
+         (size_t)max(l - FMS_ANY_LR, 0) * 32 * 2 * sizeof(double) +
+         (any_vw(c, v) ? 0 : (size_t)c * any_nw(v) * 32 * sizeof(uint32_t));
+}
+
+template <int M, int VW>
 __global__ void __launch_bounds__(32 * FMS_WARPS)
     fms_partials_any(const double* __restrict__ x,
                      const int* __restrict__ codes,
@@ -348,6 +424,211 @@ __global__ void __launch_bounds__(32 * FMS_WARPS)
                      const uint8_t* __restrict__ cat, int T, int Q, int L,
                      int C, int V, int chunk, int n_qb, double eps,
                      double* __restrict__ scratch) {
+  constexpr int LR = FMS_ANY_LR;
+  constexpr int RW = FMS_ROWS;
+  constexpr int S = FMS_STAGES;
+  constexpr int MA = M > 0 ? M : 1;
+  static_assert(LR % 2 == 0, "register dims are read as pairs");
+  using Word = std::conditional_t<VW == 2, uint64_t, uint32_t>;
+  extern __shared__ __align__(16) unsigned char fms_smem[];
+  const int n_warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qb = blockIdx.x % n_qb;
+  const int c = blockIdx.x / n_qb;
+  const int q0 = (qb * n_warps + warp) * 32;
+  if (q0 >= Q) return;  // no live snippet (the warp syncs with no other)
+  const int n_live = min(32, Q - q0);
+  const int q = q0 + lane;
+  const int LX = any_lx(L), SIZE = any_rec(L, M), CP = any_cp(C, V);
+  const int NW = any_nw(V), LS = max(L - LR, 0);
+  unsigned char* base = fms_smem + warp * fms_any_warp_smem(M, L, C, V);
+  double* ring = reinterpret_cast<double*>(base);  // [S][RW][SIZE]
+  int* cring = reinterpret_cast<int*>(ring + S * RW * SIZE);  // [S][RW][CP]
+  double2* bnd = reinterpret_cast<double2*>(cring + S * RW * CP);  // [LS][32]
+  uint32_t* words = reinterpret_cast<uint32_t*>(bnd + LS * 32);  // [C][NW][32]
+
+  const int t_begin = c * chunk;
+  const int n_rows = min(chunk, T - t_begin);
+  const int n_st = (n_rows + RW - 1) / RW;
+
+  // The x slots no copy writes (dims L .. LX - 1): zero, against [-inf,
+  // inf]; so are the padded codes of register words (code 0, word 1).
+  for (int e = lane; e < S * RW; e += 32) {
+    for (int k = L; k < LX; ++k) ring[e * SIZE + k] = 0.0;
+    for (int k = C; k < CP; ++k) cring[e * CP + k] = 0;
+  }
+
+  auto load_stage = [&](int st) {
+    if (st >= n_st) return;
+    const int r = st * RW + lane;
+    const bool in = r < n_rows;
+    const size_t t = in ? (size_t)(t_begin + r) : 0;  // a row that exists
+    double* rec = ring + ((st % S) * RW + lane) * SIZE;
+    int* cs = cring + ((st % S) * RW + lane) * CP;
+    for (int k = 0; k < L; ++k) cp_async<8>(rec + k, x + t * L + k, in);
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+      cp_async<8>(rec + LX + 2 * j, meas + t * ms + j, in);
+    if (valid)
+      cp_async<8>(rec + LX + 2 * M, valid + t, in);
+    else
+      rec[LX + 2 * M] = in ? 1.0 : 0.0;
+    for (int k = 0; k < C; ++k) cp_async<4>(cs + k, codes + t * C + k, in);
+  };
+  // This lane's tuple of stage st has landed: form m^2, and zero the weight
+  // (and codes) of a tuple with a code outside [0, V).
+  auto land_stage = [&](int st) {
+    double* rec = ring + ((st % S) * RW + lane) * SIZE;
+    int* cs = cring + ((st % S) * RW + lane) * CP;
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+      rec[LX + 2 * j + 1] = __dmul_rn(rec[LX + 2 * j], rec[LX + 2 * j]);
+    bool bad = false;
+    for (int k = 0; k < C; ++k) bad |= (unsigned)cs[k] >= (unsigned)V;
+    if (bad) {
+      rec[LX + 2 * M] = 0.0;
+      for (int k = 0; k < C; ++k) cs[k] = 0;
+    }
+  };
+
+  for (int st = 0; st < S - 1; ++st) {
+    load_stage(st);
+    cp_async_commit();
+  }
+
+  // Per snippet, formed once: the widened bounds (registers, then shared
+  // memory) and the category words.
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  const bool live = lane < n_live;
+  double lo_r[LR], hi_r[LR];
+#pragma unroll
+  for (int k = 0; k < LR; ++k) {
+    const bool use = k < L && live;
+    lo_r[k] = use ? lo[(size_t)q * L + k] - eps : -inf;
+    hi_r[k] = use ? hi[(size_t)q * L + k] + eps : inf;
+  }
+  for (int k = 0; k < LS; ++k)
+    bnd[k * 32 + lane] =
+        live ? make_double2(lo[(size_t)q * L + LR + k] - eps,
+                            hi[(size_t)q * L + LR + k] + eps)
+             : make_double2(-inf, inf);
+  Word word_r[FMS_CB];  // VW 1, 2: the register path's words
+#pragma unroll
+  for (int k = 0; k < FMS_CB; ++k) {
+    Word w = 1;  // a padded dim: code 0, a member
+    if (VW && k < C) {
+      w = 0;
+      if (live)
+        for (int v = 0; v < V; ++v)
+          w |= Word(cat[((size_t)q * C + k) * V + v] != 0) << v;
+    }
+    word_r[k] = w;
+  }
+  if (!VW)
+    for (int i = lane; i < C * NW * 32; i += 32) {
+      const int s = i % 32, kw = i / 32, k = kw / NW, w0 = kw % NW * 32;
+      uint32_t word = 0;
+      if (s < n_live) {
+        const uint8_t* set = cat + ((size_t)(q0 + s) * C + k) * V;
+        for (int b = 0; b < 32 && w0 + b < V; ++b)
+          word |= uint32_t(set[w0 + b] != 0) << b;
+      }
+      words[i] = word;
+    }
+  cp_async_wait<S - 2>();
+  land_stage(0);
+  __syncwarp();  // every lane's copies of stage 0, bounds and words
+
+  double acc_s[MA], acc_q[MA], acc_n = 0.0;
+#pragma unroll
+  for (int j = 0; j < MA; ++j) acc_s[j] = acc_q[j] = 0.0;
+
+  for (int st = 0; st < n_st; ++st) {
+    load_stage(st + S - 1);  // into stage st - 1's slot, read by now
+    cp_async_commit();
+    const double* rs = ring + (st % S) * RW * SIZE;
+    const int* cs = cring + (st % S) * RW * CP;
+#pragma unroll 4
+    for (int i = 0; i < RW; ++i) {
+      const double* rec = rs + i * SIZE;
+      // Each pair of dims' four compares apart, the pairs ANDed as a tree
+      // the compiler cannot chain (left to itself it feeds every compare's
+      // predicate into the next: a serial chain of 2 LR DSETPs a tuple).
+      uint32_t ok[LR / 2];
+#pragma unroll
+      for (int k = 0; k < LR; k += 2) {
+        const double2 xv = reinterpret_cast<const double2*>(rec)[k / 2];
+        ok[k / 2] = (xv.x >= lo_r[k]) & (xv.x <= hi_r[k]) &
+                    (xv.y >= lo_r[k + 1]) & (xv.y <= hi_r[k + 1]);
+      }
+#pragma unroll
+      for (int n = LR / 2; n > 1; n = (n + 1) / 2)
+#pragma unroll
+        for (int j = 0; j < n / 2; ++j)
+          ok[j] = and_opaque(ok[j], ok[n - 1 - j]);
+      bool hit = ok[0];
+#pragma unroll 1
+      for (int k = 0; k < LS; ++k) {
+        const double xv = rec[LR + k];
+        const double2 b = bnd[k * 32 + lane];
+        hit = hit & (xv >= b.x) & (xv <= b.y);
+      }
+      bool member;
+      if constexpr (VW != 0) {
+        const int4 cd = *reinterpret_cast<const int4*>(cs + i * CP);
+        const Word bits = and_opaque(
+            and_opaque(word_r[0] >> cd.x, word_r[1] >> cd.y),
+            and_opaque(word_r[2] >> cd.z, word_r[3] >> cd.w));
+        member = bits & 1;
+      } else {
+        uint32_t bits = 1;
+#pragma unroll 1
+        for (int k = 0; k < C; ++k) {
+          const unsigned code = static_cast<unsigned>(cs[i * CP + k]);
+          bits &= words[(k * NW + (code >> 5)) * 32 + lane] >> (code & 31);
+        }
+        member = bits & 1;
+      }
+      const double w = (hit && member) ? rec[LX + 2 * M] : 0.0;
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        const double2 mv = reinterpret_cast<const double2*>(rec + LX)[j];
+        acc_s[j] = __fma_rn(w, mv.x, acc_s[j]);
+        acc_q[j] = __fma_rn(w, mv.y, acc_q[j]);
+      }
+      acc_n = __dadd_rn(acc_n, w);
+    }
+    if (st + 1 < n_st) {
+      cp_async_wait<S - 2>();  // stage st + 1 has landed (this lane's)
+      land_stage(st + 1);
+      __syncwarp();  // ... every lane's, and stage st is fully read
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+  double* dst = scratch + ((size_t)c * Q + q) * (2 * M + 1);
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    dst[j] = acc_s[j];
+    dst[M + j] = acc_q[j];
+  }
+  dst[2 * M] = acc_n;
+}
+
+// K1 for shapes whose staging outgrows a block's shared memory even at one
+// warp (about L > 150 dims, or C * V past ~48,000 category values): one
+// lane a snippet, every value read where it lies (L1), the same fold.
+template <int M>
+__global__ void __launch_bounds__(32 * FMS_WARPS)
+    fms_partials_global(const double* __restrict__ x,
+                        const int* __restrict__ codes,
+                        const double* __restrict__ valid,
+                        const double* __restrict__ meas, int ms,
+                        const double* __restrict__ lo,
+                        const double* __restrict__ hi,
+                        const uint8_t* __restrict__ cat, int T, int Q, int L,
+                        int C, int V, int chunk, int n_qb, double eps,
+                        double* __restrict__ scratch) {
   constexpr int MA = M > 0 ? M : 1;
   const int qb = blockIdx.x % n_qb;
   const int c = blockIdx.x / n_qb;
@@ -601,12 +882,27 @@ using FmsKernel = void (*)(const double*, const int*, const double*,
   }
 static_assert(MAX_M == 8, "WITH_M lists m = 0..8");
 
+// Shared memory a block may opt into (227 KB).
+constexpr size_t SMEM_OPT_IN = 227 * 1024;
+
 // K1's path for a shape: 1 the register path with 32-bit category words,
-// 2 with 64-bit words, 0 fms_partials_any.
-int fms_path(int L, int C, int V) {
-  if (L > FMS_LB || C > FMS_CB) return 0;
-  if (C == 0 || V <= 32) return 1;
-  return V <= FMS_VMAX ? 2 : 0;
+// 2 with 64-bit words, 0 fms_partials_any, 3 fms_partials_global (a shape
+// whose any-width staging outgrows a block's shared memory at one warp).
+int fms_path(int L, int C, int V, int M) {
+  if (L <= FMS_LB && C <= FMS_CB) {
+    if (C == 0 || V <= 32) return 1;
+    if (V <= FMS_VMAX) return 2;
+  }
+  return fms_any_warp_smem(M, L, C, V) <= SMEM_OPT_IN ? 0 : 3;
+}
+
+// Warps a block: FMS_WARPS, and on the any-width path the most (4, 2 or
+// 1) whose staging fits a block's shared memory.
+int fms_warps(int path, int L, int C, int V, int M) {
+  if (path != 0) return FMS_WARPS;
+  int w = FMS_WARPS;
+  while (w > 1 && w * fms_any_warp_smem(M, L, C, V) > SMEM_OPT_IN) w /= 2;
+  return w;
 }
 
 // Snippets a lane: FMS_SPL_WIDE on the register path when that grid still
@@ -614,17 +910,29 @@ int fms_path(int L, int C, int V) {
 // feeds more chains), else 1 (a small Q needs every warp it can get).
 int fms_spl(int path, int n_chunks, int Q, int n_sm) {
   const long long tiles = (Q + 32 * FMS_SPL_WIDE - 1) / (32 * FMS_SPL_WIDE);
-  return path && (long long)n_chunks * tiles >= (long long)FMS_WIDE_WARPS * n_sm
+  return (path == 1 || path == 2) &&
+                 (long long)n_chunks * tiles >= (long long)FMS_WIDE_WARPS * n_sm
              ? FMS_SPL_WIDE
              : 1;
 }
 
-FmsKernel fms_kernel(int path, int spl, int m) {
+// Dynamic shared memory a block of the path takes.
+size_t fms_block_smem(int path, int spl, int warps, int L, int C, int V,
+                      int M) {
+  if (path == 1 || path == 2) return FMS_WARPS * fms_warp_smem(M, C, V, spl);
+  if (path == 0) return warps * fms_any_warp_smem(M, L, C, V);
+  return 0;
+}
+
+FmsKernel fms_kernel(int path, int spl, int m, int vw) {
   if (path == 1 && spl == 1) WITH_M(m, (fms_partials<M, 1, 1>))
   if (path == 1) WITH_M(m, (fms_partials<M, 1, FMS_SPL_WIDE>))
   if (path == 2 && spl == 1) WITH_M(m, (fms_partials<M, 2, 1>))
   if (path == 2) WITH_M(m, (fms_partials<M, 2, FMS_SPL_WIDE>))
-  WITH_M(m, (fms_partials_any<M>))
+  if (path == 0 && vw == 1) WITH_M(m, (fms_partials_any<M, 1>))
+  if (path == 0 && vw == 2) WITH_M(m, (fms_partials_any<M, 2>))
+  if (path == 0) WITH_M(m, (fms_partials_any<M, 0>))
+  WITH_M(m, (fms_partials_global<M>))
 }
 
 // The current device's SM count, read once a device (K1 asks on every
@@ -671,22 +979,24 @@ extern "C" int fms_launch(const double* x, const int* codes,
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_chunks = T > 0 ? (T + chunk - 1) / chunk : 0;
   if (n_chunks > 0) {
-    const int path = fms_path(L, C, V);
+    const int path = fms_path(L, C, V, M);
     const int spl = fms_spl(path, n_chunks, Q, sm_count());
-    const int width = 32 * spl * FMS_WARPS;
+    const int warps = fms_warps(path, L, C, V, M);
+    const int width = 32 * spl * warps;
     const int n_qb = (Q + width - 1) / width;
     const long long blocks = (long long)n_chunks * n_qb;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    const FmsKernel kernel = fms_kernel(path, spl, M);
-    size_t smem = 0;
-    if (path) {
-      smem = FMS_WARPS * fms_warp_smem(M, C, V, spl);
-      static uint64_t opted_in[3][2][MAX_M + 1] = {};
+    const int vw = path == 0 ? any_vw(C, V) : 0;
+    const FmsKernel kernel = fms_kernel(path, spl, M, vw);
+    const size_t smem = fms_block_smem(path, spl, warps, L, C, V, M);
+    if (smem) {
+      static uint64_t opted_in[3][3][MAX_M + 1] = {};
       cudaError_t e = opt_in_smem(reinterpret_cast<const void*>(kernel),
-                                  opted_in[path][spl > 1][M]);
+                                  opted_in[path][path ? spl > 1 : vw][M]);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    kernel<<<static_cast<unsigned>(blocks), 32 * FMS_WARPS, smem, s>>>(
+    const int threads = path == 3 ? 32 * FMS_WARPS : 32 * warps;
+    kernel<<<static_cast<unsigned>(blocks), threads, smem, s>>>(
         x, codes, valid, meas, meas_stride, lo, hi, cat, T, Q, L, C, V,
         chunk, n_qb, eps, scratch);
     cudaError_t e = cudaGetLastError();
@@ -697,16 +1007,19 @@ extern "C" int fms_launch(const double* x, const int* codes,
 
 // K1's launch plan as the launch above computes it on the current device,
 // for the wrapper's fused_scan_plan: out = {path (0 any width, 1 32-bit
-// category words, 2 64-bit), snippets a lane, snippets a block, chunks,
-// q tiles, partial blocks, fold blocks, dynamic shared memory a block, the
-// device's SMs, tuples a ring stage}. Returns 0.
+// category words, 2 64-bit, 3 any width from global memory), snippets a
+// lane, snippets a block, chunks, q tiles, partial blocks, fold blocks,
+// dynamic shared memory a block, the device's SMs, tuples a ring stage,
+// the any-width path's category words (1 or 2: 32- or 64-bit words in
+// registers, 0: in shared memory or another path)}. Returns 0.
 extern "C" int fms_plan(int T, int Q, int M, int L, int C, int V, int chunk,
                         int* out) {
-  const int path = fms_path(L, C, V);
+  const int path = fms_path(L, C, V, M);
   const int n_chunks = T > 0 ? (T + chunk - 1) / chunk : 0;
   const int n_sm = sm_count();
   const int spl = fms_spl(path, n_chunks, Q, n_sm);
-  const int width = 32 * spl * FMS_WARPS;
+  const int warps = fms_warps(path, L, C, V, M);
+  const int width = 32 * spl * warps;
   const int n_qb = (Q + width - 1) / width;
   out[0] = path;
   out[1] = spl;
@@ -715,10 +1028,10 @@ extern "C" int fms_plan(int T, int Q, int M, int L, int C, int V, int chunk,
   out[4] = n_qb;
   out[5] = n_chunks * n_qb;
   out[6] = (Q * (2 * M + 1) + 31) / 32;
-  out[7] = path ? static_cast<int>(FMS_WARPS * fms_warp_smem(M, C, V, spl))
-                : 0;
+  out[7] = static_cast<int>(fms_block_smem(path, spl, warps, L, C, V, M));
   out[8] = n_sm;
   out[9] = FMS_ROWS;
+  out[10] = path == 0 ? any_vw(C, V) : 0;
   return 0;
 }
 

@@ -94,8 +94,11 @@ class FusedScanPlan(NamedTuple):
     """K1's launch for one group of ``m`` measures, as the built library's
     ``fms_launch`` computes it on the current card. ``path`` 1 keeps every
     snippet's bounds and category sets in registers with 32-bit words, 2
-    with 64-bit words, 0 is the kernel for any width; ``spl`` snippets a
-    lane; ``rows`` tuples a ring stage. Block ``b`` folds chunk ``b //
+    with 64-bit words, 0 is the kernel for any width (its category sets
+    as the register path's words in registers, ``words`` 1 or 2, or as
+    words in shared memory, 0), 3 that kernel's shape past a block's shared
+    memory (every value read where it lies); ``spl`` snippets a lane;
+    ``rows`` tuples a ring stage. Block ``b`` folds chunk ``b //
     n_q_tiles`` for snippet tile ``b % n_q_tiles``."""
 
     path: int
@@ -108,6 +111,7 @@ class FusedScanPlan(NamedTuple):
     smem: int
     n_sm: int
     rows: int
+    words: int
 
 
 def fused_scan_plan(t_n, q_n, m, l, c, v):

@@ -5,8 +5,10 @@ float32 sums: on a CUDA tensor it launches ``csrc/range_mask_agg.cu``
 (float32 compares and accumulation, fixed-order two-pass fold, bitwise the
 same on every run), on a CPU tensor it runs the plain version
 (``ref.range_mask_agg_ref``). Anything else raises. It takes any payload
-width: a launch folds at most ``RMA_GROUP`` columns, so the wrapper
-launches once per group of ``payload_groups(P)``, each on its own columns.
+width in one launch: the kernel cuts the columns into groups a warp folds
+(at most 20 columns each), whose warps run side by side over the same
+(T, Q) mask, each on its own columns. The grouping is decided in the C
+file alone; ``range_mask_agg_plan`` reads it from the built library.
 
 ``eval_partials_kernel`` is a drop-in for
 ``repro_torch.aqp.executor.eval_partials``: categorical membership and
@@ -18,6 +20,7 @@ kernel folds ``[m, m², 1]`` in float32, and the sums come back as float64.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,24 +35,43 @@ from repro_torch.kernels import (
 from repro_torch.kernels.range_mask_agg.ref import F32, range_mask_agg_ref
 
 RMA_CHUNK_T = 256  # tuples one block folds; fixed, so sums depend on T only
-RMA_GROUP = 17  # payload columns one launch keeps in registers
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = ([_P, _P, _I] + [_P] * 3 + [_I] * 5 + [ctypes.c_float]
-             + [_P] * 2 + [_I, _P])
+_ARGTYPES = {
+    "rma_launch": ([_P, _P, _I] + [_P] * 3 + [_I] * 5 + [ctypes.c_float]
+                   + [_P] * 2 + [_I, _P]),
+    "rma_plan": [_I] * 5 + [_P],
+}
 
 
-def payload_groups(p):
-    """[(first column, count)] of the launches over ``p`` payload columns:
-    runs of at most ``RMA_GROUP`` in order."""
-    return [(j, min(RMA_GROUP, p - j)) for j in range(0, p, RMA_GROUP)]
+class RangeMaskAggPlan(NamedTuple):
+    """K5's launch as the built library's ``rma_launch`` computes it:
+    columns a group (the last group folds zero columns up to it), groups,
+    groups a block, snippet tiles a block (a warp for each tile and group),
+    partial blocks, dynamic shared memory a block (bytes) and second-pass
+    blocks."""
+
+    group_width: int
+    groups: int
+    groups_a_block: int
+    tiles: int
+    blocks: int
+    smem: int
+    fold_blocks: int
 
 
-def _entry():
-    fn = load("range_mask_agg").rma_launch
+def range_mask_agg_plan(t_n, q_n, l, p):
+    """``rma_plan`` of the built library (the card's build)."""
+    out = (ctypes.c_int * len(RangeMaskAggPlan._fields))()
+    _entry("rma_plan")(t_n, q_n, l, p, RMA_CHUNK_T, out)
+    return RangeMaskAggPlan(*out)
+
+
+def _entry(name):
+    fn = getattr(load("range_mask_agg"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -68,7 +90,8 @@ def range_mask_agg(x, payload, lo, hi, extra_mask=None):
     t_n, l = x.shape
     q_n = lo.shape[0]
     p = payload.shape[1]
-    if q_n > 65535 * 128 or t_n >= 2**31 - RMA_CHUNK_T:
+    if t_n >= 2**31 - RMA_CHUNK_T or (
+            -(-t_n // RMA_CHUNK_T) * -(-q_n // 32) >= 2**31):
         raise ValueError(f"range_mask_agg: T={t_n}, Q={q_n} exceed the "
                          "kernel's grid")
     if extra_mask is None:
@@ -84,17 +107,14 @@ def range_mask_agg(x, payload, lo, hi, extra_mask=None):
     if q_n == 0 or p == 0:
         return out
     n_chunks = -(-t_n // RMA_CHUNK_T)
-    scratch = torch.empty((max(n_chunks, 1), q_n, min(p, RMA_GROUP)),
-                          dtype=F32, device=dev)
+    scratch = torch.empty((max(n_chunks, 1), p, q_n), dtype=F32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for first, count in payload_groups(p):
-        err = _entry()(
-            x.data_ptr(), payload.data_ptr() + 4 * first, p, lo.data_ptr(),
-            hi.data_ptr(), extra_mask.data_ptr(), t_n, q_n, l, count,
-            RMA_CHUNK_T, RANGE_EPS, scratch.data_ptr(),
-            out.data_ptr() + 4 * first, p, stream)
-        check_cuda_error(err, "range_mask_agg")
-        range_mask_agg.launches += 1
+    err = _entry("rma_launch")(
+        x.data_ptr(), payload.data_ptr(), p, lo.data_ptr(), hi.data_ptr(),
+        extra_mask.data_ptr(), t_n, q_n, l, p, RMA_CHUNK_T, RANGE_EPS,
+        scratch.data_ptr(), out.data_ptr(), p, stream)
+    check_cuda_error(err, "range_mask_agg")
+    range_mask_agg.launches += 1
     return out
 
 

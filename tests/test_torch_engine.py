@@ -280,6 +280,166 @@ def count_inverse_rebuilds():
     return counts
 
 
+def _digest(*arrays):
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for a in arrays:
+        a = np.ascontiguousarray(np.asarray(a))
+        h.update(str((a.dtype, a.shape)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _sketch(sinv):
+    """(Sigma^-1 r, its diagonal) for a fixed random r: an O(n) record of
+    an (n, n) inverse that moves with every entry of it."""
+    a = np.asarray(sinv, np.float64)
+    r = np.random.default_rng(12345).uniform(-1.0, 1.0, a.shape[0])
+    return np.concatenate([a @ r, np.diag(a)])
+
+
+def _rel_diff(a, b):
+    """max |a - b| / max |b| (norm-wise), inf where the shapes differ."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    if a.size == 0:
+        return 0.0
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def trace_applies():
+    """Record, for both packages and per synopsis name, every ingest
+    (``Synopsis._apply_add``) in order: a digest of its arguments and of
+    the model state it starts from (Sigma in the inverse's order,
+    Sigma^-1, alpha, the GP parameters), every step inside it (the
+    covariance blocks it builds, each blocked append and delete of the
+    inverse, each full refactor) with a digest and the values (the blocks
+    in full, an inverse as ``_sketch``), and after it Sigma^-1 (digest and
+    sketch) and alpha (in full). Patches both synopsis modules for the
+    rest of the process; returns ``{"jax": {name: [record]}, "port":
+    ...}``. ``apply_divergence`` reads it."""
+    import threading
+
+    from repro.core import synopsis as jx_syn
+    from repro_torch.core import synopsis as pt_syn
+
+    traces = {"jax": {}, "port": {}}
+    local = threading.local()
+
+    def state(self):
+        order = np.asarray(self._order, np.int64)
+        p = self.params
+        return _digest(self._sigma[np.ix_(order, order)], self._sigma_inv,
+                       self._alpha, order,
+                       *(np.asarray(getattr(p, f))
+                         for f in ("log_ls", "log_sigma2", "mu")))
+
+    def apply(pkg, orig):
+        def run(self, *args):
+            rec = {"args": _digest(*args), "before": state(self),
+                   "steps": []}
+            local.rec = rec
+            try:
+                return orig(self, *args)
+            finally:
+                local.rec = None
+                rec["after"] = _digest(self._sigma_inv, self._alpha)
+                rec["sinv"] = _sketch(self._sigma_inv)
+                rec["alpha"] = np.array(np.asarray(self._alpha))
+                rec["n"] = len(self._order)
+                traces[pkg].setdefault(self.name, []).append(rec)
+        return run
+
+    def step(kind, orig, values):
+        def run(*args, **kw):
+            out = orig(*args, **kw)
+            rec = getattr(local, "rec", None)
+            if rec is not None:
+                vals = values(args, out)
+                rec["steps"].append((kind, _digest(*vals), vals))
+            return out
+        return run
+
+    def blocks(args, out):
+        return [np.array(v) for v in out]
+
+    def inverse(args, out):
+        return [] if out is None else [_sketch(out)]
+
+    def refactored(args, out):
+        return [_sketch(args[0]._sigma_inv)]
+
+    for pkg, mod in (("jax", jx_syn), ("port", pt_syn)):
+        cls = mod.Synopsis
+        cls._apply_add = apply(pkg, cls._apply_add)
+        cls._cov_blocks = step("covariance blocks", cls._cov_blocks, blocks)
+        cls._refactor = step("refactor", cls._refactor, refactored)
+        mod.inv_append_block = step("append", mod.inv_append_block, inverse)
+        mod.inv_delete_block = step("delete", mod.inv_delete_block, inverse)
+    return traces
+
+
+def apply_divergence(traces, rtol=1e-12):
+    """Per synopsis name, where the two packages' ingests part: the first
+    apply whose state after it is not bitwise equal, and the first whose
+    Sigma^-1 sketch or alpha differs by more than ``rtol`` (norm-wise);
+    for each, whether its arguments and starting state were bitwise equal,
+    and its first step whose output differs (kind, relative difference)."""
+    out = {}
+    for name in sorted(set(traces["jax"]) | set(traces["port"])):
+        js, ps = traces["jax"].get(name, []), traces["port"].get(name, [])
+        info = {"applies": (len(js), len(ps)), "first_unequal": None,
+                "first_beyond": None}
+        for i, (j, p) in enumerate(zip(js, ps)):
+            rel = max(_rel_diff(p["sinv"], j["sinv"]),
+                      _rel_diff(p["alpha"], j["alpha"]))
+            if info["first_unequal"] is None and j["after"] != p["after"]:
+                info["first_unequal"] = _apply_summary(i, j, p, rel)
+            if rel > rtol:
+                info["first_beyond"] = _apply_summary(i, j, p, rel)
+                break
+        out[name] = info
+    return out
+
+
+def _apply_summary(i, j, p, rel):
+    step = None
+    for (kj, dj, vj), (kp, dp, vp) in zip(j["steps"], p["steps"]):
+        if kj != kp:
+            step = (f"{kj} / {kp} (another sequence of steps)", None)
+            break
+        if dj != dp:
+            step = (kj, max(_rel_diff(a, b) for a, b in zip(vp, vj))
+                    if len(vj) == len(vp) and vj else float("inf"))
+            break
+    if step is None and len(j["steps"]) != len(p["steps"]):
+        step = ("step count", None)
+    return {"apply": i, "n": (j["n"], p["n"]), "rel": rel,
+            "args_equal": j["args"] == p["args"],
+            "state_equal": j["before"] == p["before"], "step": step}
+
+
+def library_last_bits(n=200_000, seed=0):
+    """How often XLA's and PyTorch's CPU exp and erf (the transcendentals of
+    the SE integral, Appendix F.1) differ on the same float64 arguments
+    u / z, u uniform in [-1, 1], z = 0.7: {name: (count, largest relative
+    difference)}."""
+    from jax.scipy.special import erf as jx_erf
+
+    u = np.random.default_rng(seed).uniform(-1.0, 1.0, n) / 0.7
+    out = {}
+    for name, jf, pf in (
+            ("exp", lambda v: jnp.exp(-v * v), lambda v: torch.exp(-v * v)),
+            ("erf", jx_erf, torch.special.erf)):
+        a = np.asarray(jf(jnp.asarray(u)))
+        b = pf(torch.as_tensor(u)).numpy()
+        out[name] = (int((a != b).sum()), float(
+            (np.abs(a - b) / np.maximum(np.abs(b), 1e-300)).max()))
+    return out
+
+
 def coverage_study(jeng, peng, warm, serve, log=None, refit_steps=None):
     """Warm both engines up with ``execute_many(warm)``, ``refit`` them
     (``refit_steps`` Adam steps; None: no refit), then serve ``serve`` one
@@ -356,7 +516,11 @@ def main():
         pt_engine.EngineConfig(**cfg), device="cpu")
     jeng = jx_engine.VerdictEngine(jx_w.tpch_like(args.seed, n_rows=args.rows),
                                    jx_engine.EngineConfig(**cfg))
+    for name, (count, rel) in library_last_bits().items():
+        print(f"{name} of 200,000 float64 arguments: XLA and PyTorch differ "
+              f"on {count}, by at most {rel:.3e} relative")
     rebuilds = count_inverse_rebuilds()
+    traces = trace_applies()
     out, differ = coverage_study(
         jeng, peng, pt_w.tpch_workload(args.seed, peng.schema, args.warm),
         pt_w.tpch_workload(args.seed + 1, peng.schema, args.serve),
@@ -390,6 +554,12 @@ def main():
                        ("a rebuilt synopsis", ~clean)):
         print(f"cells reading {label}: {int(sel.sum())}, largest relative "
               f"difference {rel[sel].max() if sel.any() else 0.0:.3e}")
+    # Where the ingests part: per synopsis, the first apply not bitwise
+    # equal and the first beyond 1e-12 (Sigma^-1 sketch or alpha).
+    for name, info in apply_divergence(traces).items():
+        print(f"ingests of {name}: {info['applies']} applies (jax, port); "
+              f"first not bitwise equal {info['first_unequal']}; first "
+              f"beyond 1e-12 relative {info['first_beyond']}")
 
 
 if __name__ == "__main__":

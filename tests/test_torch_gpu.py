@@ -583,7 +583,7 @@ def test_cuda_k1_and_k4_take_any_measure_count(m):
 @pytest.mark.parametrize("l,cats,path", [(2, (3, 2, 5), 1), (3, (40, 2), 2),
                                          (6, (3,), 0), (2, (3, 2, 2, 2, 2), 0),
                                          (1, (70,), 0), (4, (), 1),
-                                         (0, (4,), 1)])
+                                         (0, (4,), 1), (2, (30_000, 3), 3)])
 def test_cuda_k1_every_path_matches_plain_version_and_k4(l, cats, path):
     """Each of K1's paths (bounds and 32- or 64-bit category words in
     registers, or the kernel for any width) against the plain version, K4
@@ -628,7 +628,9 @@ def test_cuda_k1_rows_do_not_depend_on_q():
     (60_000, 128, 8, 2, 1, 40, 2, 1),    # 64-bit category words
     (60_000, 4096, 0, 9, 3, 5, 0, 1),    # wider than the registers take
     (257, 33, 2, 3, 5, 4, 0, 1),
-    (1, 1, 1, 0, 0, 1, 1, 1)])
+    (1, 1, 1, 0, 0, 1, 1, 1),
+    (60_000, 128, 9, 9, 1, 8, 0, 1),     # phase 4's wide relation (M <= 8)
+    (3001, 200, 2, 2, 2, 30_000, 3, 1)])  # category words past the smem
 def test_k1_library_plan_covers_every_snippet(t, q_n, m, l, c, v, path,
                                               spl):
     """The built library's K1 plan: the path a shape takes, snippets a
@@ -646,15 +648,17 @@ def test_k1_library_plan_covers_every_snippet(t, q_n, m, l, c, v, path,
     k4 = pt_fms.masked_partials_plan(t, q_n, m)
     assert k4.scratch == (plan.n_chunks, q_n, 2 * m + 1)
     assert plan.fold_blocks == k4.fold_blocks
-    assert (plan.smem > 0) == (path > 0) and plan.smem <= 227 * 1024
+    assert (plan.smem > 0) == (path != 3) and plan.smem <= 227 * 1024
     assert plan.rows > 0
 
 
-@pytest.mark.parametrize("p", [19, 35])
+@pytest.mark.parametrize("p", [5, 17, 19, 35, 40, 64, 130])
 def test_cuda_range_mask_agg_takes_any_payload_width(p):
-    """K5 over more payload columns than one launch folds: against its
-    plain version (rtol 1e-5, f32), bitwise on a repeat, and each column
-    bitwise what the kernel gives on that column alone."""
+    """K5 over any payload width in one launch (column groups of at most
+    20, group widths 5, 17 (the [m, m², 1] payload of 8 measures), 19, 18,
+    20 (the widest), 16 and 19): against its plain version (rtol 1e-5,
+    f32), bitwise on a repeat, and each column bitwise what the kernel
+    gives on that column alone."""
     _, num, cat, _, snips = _block(5000, seed=p)
     f32 = torch.float32
     payload = _measures(5000, p, seed=p).to(f32)
@@ -663,8 +667,7 @@ def test_cuda_range_mask_agg_takes_any_payload_width(p):
               extra)
     before = launch_counts()["range_mask_agg"]
     got = pt_rma.range_mask_agg(*inputs)
-    assert launch_counts()["range_mask_agg"] == before + len(
-        pt_rma.payload_groups(p))
+    assert launch_counts()["range_mask_agg"] == before + 1
     assert torch.equal(got, pt_rma.range_mask_agg(*inputs))
     torch.testing.assert_close(got, range_mask_agg_ref(*inputs), rtol=1e-5,
                                atol=1e-5)
@@ -672,6 +675,155 @@ def test_cuda_range_mask_agg_takes_any_payload_width(p):
         alone = pt_rma.range_mask_agg(inputs[0], payload[:, j:j + 1],
                                       *inputs[2:])
         assert torch.equal(got[:, j:j + 1], alone), j
+
+
+def _k5_inputs(t, q_n, seed, l=2, p=5):
+    """K5's inputs on the card: a block's x and an f32 payload, ``q_n``
+    range snippets over its ``l`` numeric dims and their categorical mask."""
+    _, num, cat, meas, _ = _block(t, seed=seed)
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.uniform(0, 1, (t, l)), dtype=torch.float32)
+    lo = rng.uniform(0.0, 0.6, (q_n, l))
+    hi = lo + rng.uniform(0.2, 0.5, (q_n, l))
+    member = torch.as_tensor(rng.uniform(size=(q_n, len(CATS), max(CATS)))
+                             < 0.7).cuda()
+    f32 = torch.float32
+    return (x.cuda(), _measures(t, p, seed).to(f32),
+            torch.as_tensor(lo, dtype=f32).cuda(),
+            torch.as_tensor(hi, dtype=f32).cuda(),
+            pt_rma.categorical_premask(cat, member))
+
+
+def test_cuda_range_mask_agg_rows_do_not_depend_on_q():
+    """Rows 0..127 of a Q = 4096 launch are bitwise a Q = 128 launch."""
+    x, pay, lo, hi, extra = _k5_inputs(60013, 4096, seed=51)
+    wide = pt_rma.range_mask_agg(x, pay, lo, hi, extra)
+    narrow = pt_rma.range_mask_agg(x, pay, lo[:128], hi[:128],
+                                   extra[:, :128].contiguous())
+    assert torch.equal(wide[:128], narrow)
+
+
+@pytest.mark.parametrize("with_extra", [True, False])
+@pytest.mark.parametrize("t,l", [(1, 2), (257, 3), (60013, 2), (257, 6),
+                                 (60013, 7)])
+def test_cuda_range_mask_agg_ragged_shapes(t, l, with_extra):
+    """K5 at ragged T (a partial chunk, a partial ring stage), with bounds
+    in registers (L <= 4) and in shared memory (L > 4), with and without
+    the extra mask, against its plain version (count exact, rtol 1e-5),
+    bitwise on a repeat."""
+    x, pay, lo, hi, extra = _k5_inputs(t, 100, seed=t + l, l=l)
+    extra = extra if with_extra else None
+    got = pt_rma.range_mask_agg(x, pay, lo, hi, extra)
+    want = range_mask_agg_ref(x, pay, lo, hi, extra)
+    assert torch.equal(got, pt_rma.range_mask_agg(x, pay, lo, hi, extra))
+    ones = pt_rma.range_mask_agg(x, torch.ones_like(pay[:, :1]), lo, hi,
+                                 extra)
+    assert torch.equal(ones, range_mask_agg_ref(x, torch.ones_like(
+        pay[:, :1]), lo, hi, extra))
+    assert t == 1 or float(ones.sum()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_range_mask_agg_from_an_unaligned_mask():
+    """A contiguous mask whose first element is 4 (not 16) bytes aligned
+    takes the 4-byte copies and gives the same bits."""
+    x, pay, lo, hi, extra = _k5_inputs(3000, 64, seed=53)
+    flat = torch.cat([extra.new_zeros(1), extra.reshape(-1)])
+    shifted = flat[1:].view(extra.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert torch.equal(pt_rma.range_mask_agg(x, pay, lo, hi, shifted),
+                       pt_rma.range_mask_agg(x, pay, lo, hi, extra))
+
+
+@pytest.mark.parametrize("t,q_n,l,p,width", [
+    (1, 1, 2, 1, 1), (60013, 128, 3, 5, 5), (60013, 128, 3, 35, 18),
+    (257, 33, 6, 40, 20), (257, 33, 6, 64, 16), (257, 33, 2, 130, 19)])
+def test_k5_library_plan_covers_every_column_once(t, q_n, l, p, width):
+    """The built library's K5 plan: one launch whose column groups cover
+    every column once, in order, as few groups of at most 20 columns as
+    there can be, of one width (the last group folds zero columns up to
+    it); every snippet in one block of each group, shared memory within
+    the opt-in."""
+    plan = pt_rma.range_mask_agg_plan(t, q_n, l, p)
+    assert plan.group_width == width <= 20
+    assert plan.groups == -(-p // 20)
+    assert plan.groups * width >= p > (plan.groups - 1) * width
+    assert 1 <= plan.groups_a_block <= plan.groups
+    assert plan.tiles in (1, 2, 4)
+    assert plan.blocks == (-(-t // pt_rma.RMA_CHUNK_T)
+                           * -(-plan.groups // plan.groups_a_block)
+                           * -(-q_n // (32 * plan.tiles)))
+    assert 0 < plan.smem <= 227 * 1024
+    assert plan.fold_blocks == -(-q_n * p // 32)
+
+
+def _pad_neutral(num, cat, lo, hi, member, n_num, v):
+    """The block and snippets with numeric dims up to ``n_num`` (x = 0
+    against [-inf, inf]) and one more categorical dim of ``v`` values
+    (every tuple's code 0, every snippet's set full), the sets of the other
+    dims widened to ``v`` values with no member past their own."""
+    t, l = num.shape
+    q_n = lo.shape[0]
+    inf = torch.full((q_n, n_num - l), float("inf"), dtype=lo.dtype,
+                     device=lo.device)
+    num_p = torch.cat([num, num.new_zeros((t, n_num - l))], 1)
+    cat_p = torch.cat([cat, cat.new_zeros((t, 1))], 1).contiguous()
+    sets = member.new_zeros((q_n, member.shape[1] + 1, v))
+    sets[:, :-1, :member.shape[2]] = member
+    sets[:, -1] = True
+    return (num_p, cat_p, torch.cat([lo, -inf], 1), torch.cat([hi, inf], 1),
+            sets)
+
+
+@pytest.mark.parametrize("m", [2, 9])
+def test_cuda_k1_padded_narrow_block_takes_any_width_bitwise(m):
+    """A narrow block (register path) padded with neutral dims (numeric
+    dims to 9, a categorical dim of 70 values) takes the kernel for any
+    width, which gives the register path's bits on the unpadded block."""
+    schema, num, cat, _, _ = _block(60013, seed=61 + m)
+    snips = _random_snippets(schema, 128, np.random.default_rng(61))
+    meas = _measures(60013, m, seed=62)
+    t_n, l = num.shape
+    narrow = (num, cat, meas, snips.lo, snips.hi, snips.cat)
+    assert pt_fms.fused_scan_plan(t_n, 128, min(m, 8), l, cat.shape[1],
+                                  snips.cat.shape[2]).path == 1
+    num_p, cat_p, lo_p, hi_p, sets = _pad_neutral(
+        num, cat, snips.lo, snips.hi, snips.cat, 9, 70)
+    assert pt_fms.fused_scan_plan(t_n, 128, min(m, 8), 9, cat_p.shape[1],
+                                  70).path == 0
+    want = pt_fms.fused_masked_scan(*narrow)
+    got = pt_fms.fused_masked_scan(num_p, cat_p, meas, lo_p, hi_p, sets)
+    assert float(want[:, -1].sum()) > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("l,cats,m", [(9, (8,), 9), (2, (3, 2, 5, 4, 2), 9),
+                                      (12, (3, 2, 5, 4, 2), 3)])
+def test_cuda_k1_any_width_holds_the_contracts(l, cats, m):
+    """K1's kernel for any width at L = 9, M = 9 (phase 4's wide relation)
+    and at C = 5: count exact, rtol 1e-11 of the plain version, bitwise on
+    a repeat, K4 bitwise K1."""
+    t, q_n = 60013, 128
+    rng = np.random.default_rng(l * 7 + len(cats))
+    num = torch.as_tensor(rng.uniform(0, 1, (t, l))).cuda()
+    cat = torch.as_tensor(np.array([rng.integers(0, s, t) for s in cats],
+                                   np.int32).T.copy()).cuda()
+    meas = _measures(t, m, seed=l)
+    v = max(cats)
+    lo = rng.uniform(0, 0.5, (q_n, l))
+    hi = lo + rng.uniform(0.4, 0.5, (q_n, l))
+    member = rng.uniform(size=(q_n, len(cats), v)) < 0.8
+    args = [torch.as_tensor(a).cuda() for a in (lo, hi, member)]
+    assert {pt_fms.fused_scan_plan(t, q_n, count, l, len(cats), v).path
+            for _, count in pt_fms.measure_groups(m)} == {0}
+    got = pt_fms.fused_masked_scan(num, cat, meas, *args)
+    want = fused_masked_scan_ref(num, cat, None, meas, *args)
+    assert torch.equal(got, pt_fms.fused_masked_scan(num, cat, meas, *args))
+    assert torch.equal(got[:, -1], want[:, -1])
+    assert float(got[:, -1].sum()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-11, atol=0)
+    mask = pt_exec.snippet_mask(num, cat, *args)
+    assert torch.equal(pt_fms.masked_partials(mask, meas), got)
 
 
 def _k3_in_kernel_order(args):

@@ -1,15 +1,18 @@
 """Widths past what one launch of a card kernel takes (CPU).
 
 The card's kernels keep per-width state in registers, so a launch of K1
-and K4 folds at most 8 measures, one of K5 at most 17 payload columns, and
-K3 has kernels of its own up to 8 numeric dimensions. The reference's
-kernels take any width, so the port launches over groups (K1, K4, K5) or
-runs its kernels for any width (K3); the card holds those in
-``test_torch_gpu.py``. Here:
+and K4 folds at most 8 measures, a warp of K5 at most 20 payload columns,
+and K3 has kernels of its own up to 8 numeric dimensions. The reference's
+kernels take any width, so the port launches over groups (K1, K4), cuts
+the columns into groups of warps in one launch (K5) or runs its kernels
+for any width (K3); the card holds those in ``test_torch_gpu.py``. Here:
 
-  - the pure-Python grouping: the groups of ``measure_groups`` and
-    ``payload_groups``, and each group's columns back in ``[m, m², 1]``
-    order (``group_columns``), for M in {0, 1, 8, 9, 17};
+  - the pure-Python grouping of ``measure_groups``, and each group's
+    columns back in ``[m, m², 1]`` order (``group_columns``), for M in
+    {0, 1, 8, 9, 17};
+  - K5's wrapper against the reference's Pallas kernel (interpret mode)
+    at P up to 130 payload columns (on the card one launch of column
+    groups);
   - the port's fused-scan wrapper against the reference's Pallas kernel
     (interpret mode) at the widths that pick each of the card's paths and
     past one launch's 8 measures (``test_torch_scan.py``'s tolerances);
@@ -29,6 +32,7 @@ from repro.aqp import workload as jx_w  # noqa: E402
 from repro.core import engine as jx_engine  # noqa: E402
 from repro.core import types as jx_types  # noqa: E402
 from repro.kernels.fused_masked_scan import ops as jx_fms  # noqa: E402
+from repro.kernels.range_mask_agg import ops as jx_rma  # noqa: E402
 from repro_torch.aqp import workload as pt_w  # noqa: E402
 from repro_torch.core import engine as pt_engine  # noqa: E402
 from repro_torch.core import types as pt_types  # noqa: E402
@@ -63,13 +67,30 @@ def test_measure_groups_cover_every_column_once(m):
     assert groups == expected[m]
 
 
-@pytest.mark.parametrize("p", [1, 17, 18, 35])
+@pytest.mark.parametrize("p", [1, 17, 18, 35, 64, 130])
 def test_payload_groups_cover_every_column_once(p):
-    groups = pt_rma.payload_groups(p)
-    cols = [first + j for first, count in groups for j in range(count)]
-    assert cols == list(range(p))
-    assert all(1 <= count <= pt_rma.RMA_GROUP for _, count in groups)
-    assert len(groups) == -(-p // pt_rma.RMA_GROUP)
+    """K5 over P payload columns, which the card folds in one launch of
+    column groups (the groups are the C plan's; ``test_torch_gpu.py``
+    holds them): the port's wrapper on the CPU against the reference's
+    Pallas kernel (interpret mode) gives every column once, in order, the
+    count exact and the sums within the reference's float32 budget (rtol
+    2e-4, atol 1e-3, ``test_torch_sharded.py``'s)."""
+    rng = np.random.default_rng(p)
+    t, q_n, l = 300, 7, 3
+    x = rng.uniform(0.0, 1.0, (t, l))
+    # Column j has mean j + 1, so a column out of place cannot pass.
+    payload = np.concatenate([rng.normal(np.arange(1, p), 1.0, (t, p - 1)),
+                              np.ones((t, 1))], 1)
+    lo = rng.uniform(0.0, 0.5, (q_n, l))
+    hi = lo + rng.uniform(0.2, 0.5, (q_n, l))
+    extra = (rng.uniform(size=(t, q_n)) < 0.7).astype(np.float32)
+    inputs = (x, payload, lo, hi, extra)
+    want = np.asarray(jx_rma.range_mask_agg(*map(jnp.asarray, inputs)))
+    got = pt_rma.range_mask_agg(*map(torch.as_tensor, inputs))
+    assert got.shape == want.shape == (q_n, p)
+    np.testing.assert_array_equal(got[:, -1].numpy(), want[:, -1])
+    assert float(got[:, -1].min()) > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("l,cats,m", [

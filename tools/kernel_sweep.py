@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Tiling variants of the fused-scan (K1), masked-partials (K4),
-GP-improve (K2) and SE-covariance Gram (K3) kernels.
+"""Tiling variants of the fused-scan (K1, and its kernel for any width),
+masked-partials (K4), GP-improve (K2), SE-covariance Gram (K3) and
+range-mask aggregation (K5) kernels.
 
-    python3 tools/kernel_sweep.py [k1] [k4] [k2] [k3]
+    python3 tools/kernel_sweep.py [k1] [k1any] [k4] [k2] [k3] [k5]
+        [--baseline REV_OR_DIR]
 
 Needs one NVIDIA H100 and nvcc. Each variant is the checked-in source with
 some constants or lines replaced, built into its own library under
@@ -12,13 +14,23 @@ Q in {128, 4096} on a TPC-H-like block and workload snippets (the shapes
 of chip_smoke.py's phase 2), K4 at T = 60,013 and Q in {128, 4096} on a
 random 0/1 mask, K2 at C = 2000 and Q in {8, 128} in
 float64 and float32, K3's Gram forward at n = 2000, l = 3 in float64, with
-and without derivatives. For each it prints the CUDA-event time (median of
-20 samples of 10 back-to-back calls), the profiler's device time per
-kernel, and whether the output is bitwise the checked-in source's. With no
-argument every kernel is swept.
+and without derivatives, K1's kernel for any width at T = 60,000, Q = 128
+on a block of a 9-dimension, 9-measure relation (chip_smoke.py's phase 4
+relation; two launches, over 8 measures and 1), K5 at T = 60,013, Q = 128
+and P in {5, 35} on a TPC-H-like block. For each it prints the CUDA-event
+time (median of 20 samples of 10 back-to-back calls), the profiler's device
+time per kernel, and whether the output is bitwise the checked-in source's.
+With no kernel named every kernel is swept.
+
+``--baseline`` names an earlier version of the K1 and K5 sources, as a git
+revision of this checkout or a directory holding ``fused_masked_scan.cu``
+and ``range_mask_agg.cu``: the k1any and k5 sweeps then also check once that
+the checked-in kernels give that version's bits (its K5 launched as its
+wrapper did, over groups of at most 17 columns).
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import re
@@ -112,16 +124,83 @@ K3_VARIANTS = {
             "return;"},
 }
 
+K1ANY_VARIANTS = {
+    "checked-in (4 warps, 3 stages of 32 records, 10 dims' bounds and the "
+    "category words in registers)": {},
+    "2 stages": {r"FMS_STAGES = 3;": "FMS_STAGES = 2;"},
+    "4 stages": {r"FMS_STAGES = 3;": "FMS_STAGES = 4;"},
+    "2 warps a block": {r"FMS_WARPS = 4;": "FMS_WARPS = 2;"},
+    "8 dims' bounds in registers, the 9th in shared memory": {
+        r"FMS_ANY_LR = 10;": "FMS_ANY_LR = 8;"},
+    "12 dims' bounds in registers": {
+        r"FMS_ANY_LR = 10;": "FMS_ANY_LR = 12;"},
+    "16 dims' bounds in registers": {
+        r"FMS_ANY_LR = 10;": "FMS_ANY_LR = 16;"},
+    "category words in shared memory": {
+        r"(any_vw\(int C, int V\) \{\n)  if \(C > FMS_CB\) return 0;":
+            r"\1  return 0;"},
+    "compares ANDed in a chain (the compiler's own order)": {
+        r"for \(int n = LR / 2; n > 1; n = \(n \+ 1\) / 2\)\n#pragma unroll\n"
+        r"        for \(int j = 0; j < n / 2; \+\+j\)\n"
+        r"          ok\[j\] = and_opaque\(ok\[j\], ok\[n - 1 - j\]\);":
+            "for (int j = 1; j < LR / 2; ++j) ok[0] &= ok[j];"},
+    "no range compares (wrong sums)": {
+        re.escape("ok[k / 2] = (xv.x >= lo_r[k]) & (xv.x <= hi_r[k]) &\n"
+                  "                    (xv.y >= lo_r[k + 1]) & (xv.y <= "
+                  "hi_r[k + 1]);"): "ok[k / 2] = 1;",
+        re.escape("hit = hit & (xv >= b.x) & (xv <= b.y);"): ";"},
+    "the count alone, no measure updates (wrong sums)": {
+        re.escape("acc_s[j] = __fma_rn(w, mv.x, acc_s[j]);"): ";",
+        re.escape("acc_q[j] = __fma_rn(w, mv.y, acc_q[j]);"): ";"},
+}
+K5_VARIANTS = {
+    "checked-in (4 snippet tiles a block, each with its groups' warps on "
+    "one ring of 2 stages of 32 rows; bounds in registers; up to 20 columns "
+    "a warp)": {},
+    "3 stages": {r"RMA_STAGES = 2;": "RMA_STAGES = 3;"},
+    "4 stages": {r"RMA_STAGES = 2;": "RMA_STAGES = 4;"},
+    "16 rows a stage, 4 stages": {r"RMA_ROWS = 32;": "RMA_ROWS = 16;",
+                                  r"RMA_STAGES = 2;": "RMA_STAGES = 4;"},
+    "2 snippet tiles a block": {r"RMA_TILES = 4;": "RMA_TILES = 2;"},
+    "a block for each group (each group's warps read the mask apart)": {
+        r"RMA_BLOCK_GROUPS = 4;": "RMA_BLOCK_GROUPS = 1;"},
+    "bounds in shared memory": {r"RMA_REG_BOUNDS = true;":
+                                "RMA_REG_BOUNDS = false;"},
+    "up to 64 columns a warp (one group at P = 35)": {
+        r"RMA_GROUP = 20;": "RMA_GROUP = 64;"},
+    "up to 12 columns a warp (three groups at P = 35)": {
+        r"RMA_GROUP = 20;": "RMA_GROUP = 12;"},
+    "compares ANDed in a chain (the compiler's own order)": {
+        re.escape("hit = and_opaque((xv.x >= lo_r[0]) & (xv.x <= hi_r[0]) &\n"
+                  "                             (xv.y >= lo_r[1]) & (xv.y <= "
+                  "hi_r[1]),\n"
+                  "                         (xv.z >= lo_r[2]) & (xv.z <= "
+                  "hi_r[2]) &\n"
+                  "                             (xv.w >= lo_r[3]) & (xv.w <= "
+                  "hi_r[3]));"):
+            "hit = (xv.x >= lo_r[0]) & (xv.x <= hi_r[0]) & (xv.y >= lo_r[1]) "
+            "& (xv.y <= hi_r[1]) & (xv.z >= lo_r[2]) & (xv.z <= hi_r[2]) & "
+            "(xv.w >= lo_r[3]) & (xv.w <= hi_r[3]);"},
+    "payload loads replaced by constants (wrong sums)": {
+        re.escape("const float4 pv = pr[j4];"):
+            "const float4 pv = make_float4(1.0f, 2.0f, 3.0f, 4.0f);"},
+    "no FMA (streaming and compares only; wrong sums)": {
+        re.escape("acc[4 * j4 + u] = __fmaf_rn(wv[r], v[u], acc[4 * j4 + u]);"):
+            ";"},
+}
+
 
 def log(*a):
     print(*a, flush=True)
 
 
-def build(src, variants):
-    """One library a variant; raises if a pattern does not match exactly
-    once or nvcc fails."""
+def build(src, variants, tag=None, text=None):
+    """One library a variant (files named after ``tag``, by default the
+    source's); raises if a pattern does not match exactly once or nvcc
+    fails. ``text``: the source to vary, by default the checked-in one."""
     os.makedirs(OUT, exist_ok=True)
-    text = (CSRC_DIR / f"{src}.cu").read_text()
+    if text is None:
+        text = (CSRC_DIR / f"{src}.cu").read_text()
     procs = []
     for i, subs in enumerate(variants.values()):
         body = text
@@ -129,7 +208,7 @@ def build(src, variants):
             body, n = re.subn(pat, rep, body)
             if n != 1:
                 raise RuntimeError(f"{src}: pattern {pat!r} matched {n} times")
-        cu = os.path.join(OUT, f"{src}_{i}.cu")
+        cu = os.path.join(OUT, f"{tag or src}_{i}.cu")
         with open(cu, "w") as f:
             f.write(body)
         so = cu[:-3] + ".so"
@@ -162,8 +241,12 @@ def event_ms(fn, reps=20, inner=10):
     return float(np.median(samples))
 
 
-def device_ms(fn, n=20):
-    """{kernel: device ms per call} from torch.profiler."""
+def device_ms(fn, n=20, launches=None):
+    """{kernel: device ms per call} from torch.profiler: each kernel's mean
+    time over the launches the profiler recorded (it may miss some), times
+    its launches a call: ``launches`` gives them for the kernels whose name
+    starts with a key (default 1), raised only where the profiler recorded
+    more."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -176,12 +259,19 @@ def device_ms(fn, n=20):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             k = e.name.replace("(anonymous namespace)::", "").split("(")[0]
             k = k.replace("void ", "")
-            per[k] = per.get(k, 0.0) + e.time_range.end - e.time_range.start
-    return {k: v / n / 1e3 for k, v in per.items()}
+            rec = per.setdefault(k, [0, 0.0])
+            rec[0] += 1
+            rec[1] += e.time_range.end - e.time_range.start
+
+    def a_call(k, c):
+        given = [v for pre, v in (launches or {}).items() if k.startswith(pre)]
+        return max(given[0] if given else 1, -(-c // n))
+
+    return {k: t / c * a_call(k, c) / 1e3 for k, (c, t) in per.items()}
 
 
-def report(what, name, call, out, ref):
-    dev = device_ms(call)
+def report(what, name, call, out, ref, launches=None):
+    dev = device_ms(call, launches=launches)
     log(f"  {what} | {name}: events {event_ms(call):.6f} ms, device "
         f"{sum(dev.values()):.6f} ms ("
         + ", ".join(f"{k} {v:.6f}" for k, v in dev.items())
@@ -394,19 +484,209 @@ def sweep_k3():
                    got, ref)
 
 
+def baseline_source(baseline, name):
+    """The text of ``csrc/<name>.cu`` in ``baseline`` (a directory, or a git
+    revision of this checkout), or None where it cannot be had."""
+    if baseline is None:
+        return None
+    if os.path.isdir(baseline):
+        path = os.path.join(baseline, f"{name}.cu")
+        return open(path).read() if os.path.exists(path) else None
+    out = subprocess.run(
+        ["git", "-C", ROOT, "show",
+         f"{baseline}:src/repro_torch/csrc/{name}.cu"],
+        capture_output=True, text=True)
+    return out.stdout if out.returncode == 0 else None
+
+
+def k1any_inputs(seed=0, t_n=60_000, q_n=128):
+    """A T-tuple block of chip_smoke.py's phase 4 wide relation (9 numeric
+    dims, 9 measures) and the first Q distinct snippets of its warm-up
+    workload."""
+    from repro_torch.aqp import queries as Q
+    from repro_torch.aqp.plan import SnippetInterner
+    from repro_torch.aqp.workload import make_relation, make_workload
+
+    rel = make_relation(seed + 5, 600_000, n_num=9, n_measures=9)
+    rows = np.random.default_rng(seed + 24).permutation(rel.cardinality)
+    blk = rel.take(rows[:t_n])
+    interner = SnippetInterner(rel.schema)
+    for q in make_workload(seed + 6, rel.schema, 200):
+        groups = [(g,) for g in range(3)] if q.groupby else [()]
+        interner.intern(Q.decompose(rel.schema, q, groups).snippets)
+    return blk, interner.fused()[np.arange(q_n)].to("cuda")
+
+
+def k1_call(lib, blk, s, out, scratch, stream):
+    """K1 over every measure of ``blk``, one launch a group of at most 8
+    (the wrapper's groups), through ``lib``'s C entry point."""
+    from repro_torch.kernels import RANGE_EPS
+    from repro_torch.kernels.fused_masked_scan import ops as fms
+
+    fn = lib.fms_launch
+    fn.argtypes = fms._ARGTYPES["fms_launch"]
+    x, codes, meas = blk.num_normalized, blk.cat, blk.measures
+    (t_n, l), c, m = x.shape, codes.shape[1], meas.shape[1]
+    q_n, v = s.cat.shape[0], s.cat.shape[2]
+
+    def call():
+        for first, count in fms.measure_groups(m):
+            err = fn(x.data_ptr(), codes.data_ptr(), None,
+                     meas.data_ptr() + 8 * first, m, s.lo.data_ptr(),
+                     s.hi.data_ptr(), s.cat.data_ptr(), t_n, q_n, l, c, v,
+                     count, first, m, fms.FMS_CHUNK_T, RANGE_EPS,
+                     scratch.data_ptr(), out.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"fms_launch returned {err}")
+    return call
+
+
+def sweep_k1any(baseline):
+    from repro_torch.kernels.fused_masked_scan import ops as fms
+
+    libs = build("fused_masked_scan", K1ANY_VARIANTS, tag="k1any")
+    blk, s = k1any_inputs()
+    t_n, m = blk.measures.shape
+    q_n = s.cat.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    scratch = torch.empty((-(-t_n // 256), q_n, 17), dtype=torch.float64,
+                          device="cuda")
+    folds = {"mpa_fold": len(fms.measure_groups(m))}
+    ref = None
+    for lib, name in zip(libs, K1ANY_VARIANTS):
+        out = torch.empty((q_n, 2 * m + 1), dtype=torch.float64,
+                          device="cuda")
+        call = k1_call(lib, blk, s, out, scratch, stream)
+        call()
+        torch.cuda.synchronize()
+        ref = out.clone() if ref is None else ref
+        report(f"K1 any width T={t_n} Q={q_n} L=9 M={m}", name, call, out,
+               ref, launches=folds)
+    text = baseline_source(baseline, "fused_masked_scan")
+    if text is None:
+        log(f"  K1 any width: no baseline source ({baseline!r}): not "
+            "checked against an earlier version")
+        return
+    (lib,) = build("fused_masked_scan", {"baseline": {}}, tag="k1base",
+                   text=text)
+    out = torch.empty_like(ref)
+    k1_call(lib, blk, s, out, scratch, stream)()
+    torch.cuda.synchronize()
+    log(f"  K1 any width: bitwise the baseline's ({baseline}): "
+        f"{torch.equal(out, ref)}")
+    report(f"K1 any width T={t_n} Q={q_n} L=9 M={m}",
+           f"baseline ({baseline})", k1_call(lib, blk, s, out, scratch,
+                                              stream), out, ref,
+           launches=folds)
+
+
+def k5_call(lib, args, p, out, scratch, stream, group=None):
+    """K5 over ``p`` payload columns through ``lib``'s C entry point: one
+    launch, or (``group``) one a run of at most ``group`` columns, each on
+    its own columns, as an earlier wrapper did."""
+    from repro_torch.kernels import RANGE_EPS
+    from repro_torch.kernels.range_mask_agg import ops as rma
+
+    fn = lib.rma_launch
+    fn.argtypes = rma._ARGTYPES["rma_launch"]
+    x, pay, lo, hi, extra = args
+    (t_n, l), q_n = x.shape, lo.shape[0]
+    runs = ([(0, p)] if group is None else
+            [(j, min(group, p - j)) for j in range(0, p, group)])
+
+    def call():
+        for first, count in runs:
+            err = fn(x.data_ptr(), pay.data_ptr() + 4 * first, p,
+                     lo.data_ptr(), hi.data_ptr(), extra.data_ptr(), t_n,
+                     q_n, l, count, rma.RMA_CHUNK_T, RANGE_EPS,
+                     scratch.data_ptr(), out.data_ptr() + 4 * first, p,
+                     stream)
+            if err:
+                raise RuntimeError(f"rma_launch returned {err}")
+    return call
+
+
+def k5_inputs(seed=0, t_n=60_013, q_n=128):
+    """K5's inputs at chip_smoke.py's phase 2 shapes: a T-tuple block of a
+    TPC-H-like relation, the first Q distinct snippets of a workload and
+    their categorical mask; payloads [m, m^2, 1] of its 2 measures (P = 5)
+    and of 17 measures made from them (P = 35)."""
+    from repro_torch.kernels.range_mask_agg import ops as rma
+
+    blk, snips = k1_inputs((q_n,), t_n=t_n, seed=seed)
+    s = snips[q_n]
+    f32 = torch.float32
+    meas = blk.measures.to(f32)
+    m17 = meas[:, :1].repeat(1, 17) + torch.arange(17, device="cuda")
+    pays = {p: torch.cat([m, m * m, m.new_ones((t_n, 1))], 1)
+            for p, m in ((5, meas), (35, m17))}
+    extra = rma.categorical_premask(blk.cat, s.cat)
+    return (blk.num_normalized.to(f32), s.lo.to(f32), s.hi.to(f32),
+            extra), pays
+
+
+def sweep_k5(baseline):
+    libs = build("range_mask_agg", K5_VARIANTS, tag="k5")
+    (x, lo, hi, extra), pays = k5_inputs()
+    t_n, q_n = extra.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    text = baseline_source(baseline, "range_mask_agg")
+    base = (build("range_mask_agg", {"baseline": {}}, tag="k5base",
+                  text=text)[0] if text is not None else None)
+    if base is None:
+        log(f"  K5: no baseline source ({baseline!r}): not checked against "
+            "an earlier version")
+    for p, pay in pays.items():
+        args = (x, pay, lo, hi, extra)
+        scratch = torch.empty((-(-t_n // 256), q_n, p), dtype=torch.float32,
+                              device="cuda")
+        ref = None
+        for lib, name in zip(libs, K5_VARIANTS):
+            out = torch.empty((q_n, p), dtype=torch.float32, device="cuda")
+            call = k5_call(lib, args, p, out, scratch, stream)
+            call()
+            torch.cuda.synchronize()
+            ref = out.clone() if ref is None else ref
+            report(f"K5 T={t_n} Q={q_n} P={p}", name, call, out, ref)
+        if base is not None:
+            out = torch.empty_like(ref)
+            call = k5_call(base, args, p, out, scratch, stream, group=17)
+            call()
+            torch.cuda.synchronize()
+            log(f"  K5 P={p}: bitwise the baseline's ({baseline}): "
+                f"{torch.equal(out, ref)}")
+            runs = -(-p // 17)  # the baseline launches once a 17 columns
+            report(f"K5 T={t_n} Q={q_n} P={p}", f"baseline ({baseline})",
+                   call, out, ref, launches={"rma_partials": runs,
+                                             "rma_fold_chunks": runs})
+
+
 def main():
+    sweeps = {"k1": sweep_k1, "k1any": sweep_k1any, "k4": sweep_k4,
+              "k2": sweep_k2, "k3": sweep_k3, "k5": sweep_k5}
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernels", nargs="*",
+                    help=f"the sweeps to run, of {sorted(sweeps)} (default: "
+                         "every one)")
+    ap.add_argument("--baseline", default=None,
+                    help="a git revision or a directory of earlier K1 and "
+                         "K5 sources to check the kernels' bits against")
+    args = ap.parse_args()
+    unknown = set(args.kernels) - set(sweeps)
+    if unknown:
+        ap.error(f"no sweep named {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("kernel_sweep: needs a CUDA device", file=sys.stderr)
         return 2
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())
-    sweeps = {"k1": sweep_k1, "k4": sweep_k4, "k2": sweep_k2,
-              "k3": sweep_k3}
-    chosen = sys.argv[1:] or list(sweeps)
     t0 = time.perf_counter()
-    for name in chosen:
-        sweeps[name]()
+    for name in args.kernels or list(sweeps):
+        if name in ("k1any", "k5"):
+            sweeps[name](args.baseline)
+        else:
+            sweeps[name]()
     log(f"sweep done in {time.perf_counter() - t0:.1f} s")
     return 0
 
