@@ -1,6 +1,6 @@
 // Fused masked scan for Hopper (sm_90a): the scan of every sample batch.
 // This file holds K1 (fms_partials, fms_partials_any and
-// fms_partials_global, entry point fms_launch) and K4 (mpa_partials, entry
+// fms_partials_stream with its word pass fms_words, entry point fms_launch) and K4 (mpa_partials, entry
 // point mpa_launch, further down).
 // Both fold in one fixed order and share the second pass (mpa_fold), so K4
 // gives K1's bits on the same block.
@@ -73,7 +73,7 @@
 //  * The ordered sum over chunks is K4's second pass (mpa_fold).
 //  * Other shapes (L > 4, C > 4 or V > 64) take fms_partials_any, the same
 //    skeleton and fold (below); shapes whose staging outgrows a block's
-//    shared memory take fms_partials_global. No width is refused.
+//    shared memory take fms_partials_stream. No width is refused.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -615,51 +615,243 @@ __global__ void __launch_bounds__(32 * FMS_WARPS)
   dst[2 * M] = acc_n;
 }
 
-// K1 for shapes whose staging outgrows a block's shared memory even at one
-// warp (about L > 150 dims, or C * V past ~48,000 category values): one
-// lane a snippet, every value read where it lies (L1), the same fold.
+// K1 for shapes whose any-width staging outgrows a block's shared memory
+// even at one warp (about L > 150 dims, or C * V past ~48,000 category
+// values, e.g. a categorical dim of 30,000 values): fms_partials_stream.
+//
+// What bounds it: each warp's passes over its chunk, instruction issue and
+// latency (at Q = 128, T = 60,000: 940 warps, 8 a block on 120 SMs), and
+// the word pass's reads of the sets (15.4 MB at C = 4, V = 30,000). Its
+// earlier per-lane form read each snippet's category byte where it lay: a
+// 32-sector gather a tuple at L2 latency, behind compares that left early.
+//
+// Design (redesigned for Hopper):
+//  * A first pass (fms_words) turns the (Q, C, V) bytes into 32-bit words
+//    laid out [tile][dim][word][lane] (32 snippets a tile, a lane a
+//    snippet), the any-width path's layout, into a scratch the wrapper
+//    allocates: a warp's membership test is then one conflict-free
+//    shared-memory load a tuple.
+//  * A block is one 32-snippet tile and FMS_G_WARPS warps, each on its own
+//    chunk (the tiles vary fastest over the grid, so neighbouring blocks
+//    read the same tuples): the tile's words are staged once for all of
+//    them. They are streamed a slice of FMS_G_SLICE words at a time, and
+//    only up to the word of the largest code the block's tuples hold for
+//    the dim, so no V, C or L is refused.
+//  * Each lane keeps its hits for the 256 tuples of its warp's chunk as a
+//    256-bit mask in registers across the passes: the range compares of
+//    each numeric dim (bounds widened once, held in registers while the
+//    dim's pass runs), then each categorical dim's slices; a tuple's code
+//    outside [0, V) clears its bit for every lane (a ballot). Each pass
+//    loads a column of the chunk lane-parallel (8 tuples a lane) and
+//    broadcasts a tuple at a time by shuffle. The predicate is
+//    straight-line: no compare leaves early.
+//  * The fold is K1's: fma(w, m, acc), fma(w, m^2, acc), acc_n += w over
+//    the chunk's tuples in ascending order from 0.0, w the tuple's weight
+//    (valid, or 1) where its bit is set, else 0; then mpa_fold. So the
+//    counts are exact and the sums are the other paths' bits.
+constexpr int FMS_G_WARPS = 8;      // chunks (warps) a block on one tile
+constexpr int FMS_G_SLICE = 1536;   // category words of a tile staged at once
+constexpr int FMS_G_ROWS = 256;     // tuples a hit mask covers (8 words)
+constexpr int FMS_G_COL = FMS_G_ROWS * sizeof(double);  // a staged column
+constexpr int FMS_G_HITS = FMS_G_ROWS * sizeof(uint32_t);  // a warp's masks
+static_assert(FMS_G_SLICE * 128 + FMS_G_WARPS * (FMS_G_COL + FMS_G_HITS)
+                  <= 227 * 1024, "path 3's shared memory");
+
+// Path 3's dynamic shared memory: the words of a slice, or (after the
+// category passes) each warp's fold columns [valid, m_0 .. m_{M-1}]; each
+// warp's staged column of the chunk; each warp's hit masks.
+__host__ __device__ inline size_t fms_stream_smem(int M, int C, int V) {
+  const size_t words = (size_t)(C ? min(any_nw(V), FMS_G_SLICE) : 1) * 128;
+  const size_t fold = (size_t)FMS_G_WARPS * (M + 1) * FMS_G_COL;
+  return (words > fold ? words : fold) +
+         (size_t)FMS_G_WARPS * (FMS_G_COL + FMS_G_HITS);
+}
+
+// The category words of 32-snippet tiles, [tile][dim][word][lane]: a warp
+// a (tile, dim, word), one snippet's 32 bytes a ballot (a coalesced load).
+__global__ void __launch_bounds__(256)
+    fms_words(const uint8_t* __restrict__ cat, int Q, int C, int V, int NW,
+              long long n_words, uint32_t* __restrict__ words) {
+  const long long wid = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (wid * 32 >= n_words) return;  // uniform over the warp
+  const int w = static_cast<int>(wid % NW);
+  const long long tk = wid / NW;
+  const int k = static_cast<int>(tk % C);
+  const long long q0 = tk / C * 32;
+  const int v = w * 32 + lane;
+  uint32_t mine = 0;
+#pragma unroll  // every snippet's load in flight at once
+  for (int s = 0; s < 32; ++s) {
+    const long long q = q0 + s;
+    const bool in = q < Q && v < V;
+    const uint32_t bits =
+        __ballot_sync(0xffffffffu, in && cat[((size_t)q * C + k) * V + v]);
+    if (lane == s) mine = bits;
+  }
+  words[wid * 32 + lane] = mine;
+}
+
 template <int M>
-__global__ void __launch_bounds__(32 * FMS_WARPS)
-    fms_partials_global(const double* __restrict__ x,
+__global__ void __launch_bounds__(32 * FMS_G_WARPS)
+    fms_partials_stream(const double* __restrict__ x,
                         const int* __restrict__ codes,
                         const double* __restrict__ valid,
                         const double* __restrict__ meas, int ms,
                         const double* __restrict__ lo,
                         const double* __restrict__ hi,
-                        const uint8_t* __restrict__ cat, int T, int Q, int L,
-                        int C, int V, int chunk, int n_qb, double eps,
+                        const uint32_t* __restrict__ words, int T, int Q,
+                        int L, int C, int V, int chunk, int n_chunks,
+                        int n_tiles, double eps,
                         double* __restrict__ scratch) {
   constexpr int MA = M > 0 ? M : 1;
-  const int qb = blockIdx.x % n_qb;
-  const int c = blockIdx.x / n_qb;
-  const int q = qb * 32 * FMS_WARPS + threadIdx.x;
-  if (q >= Q) return;
+  constexpr int G = FMS_G_ROWS / 32;  // mask words: tuples g * 32 + tt
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char fms_smem[];
+  __shared__ int block_max[FMS_G_WARPS];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t big = fms_stream_smem(M, C, V) -
+                     (size_t)FMS_G_WARPS * (FMS_G_COL + FMS_G_HITS);
+  uint32_t* words_s = reinterpret_cast<uint32_t*>(fms_smem);  // [w][lane]
+  double* fold_s = reinterpret_cast<double*>(fms_smem) +
+                   (size_t)warp * (M + 1) * FMS_G_ROWS;  // [M + 1][rows]
+  double* col_d = reinterpret_cast<double*>(fms_smem + big) +
+                  (size_t)warp * FMS_G_ROWS;  // this warp's column
+  int* col_i = reinterpret_cast<int*>(col_d);
+  uint32_t* hits = reinterpret_cast<uint32_t*>(
+      fms_smem + big + (size_t)FMS_G_WARPS * FMS_G_COL) + warp * 32 * G;
+  const int tile = blockIdx.x % n_tiles;
+  const int c = blockIdx.x / n_tiles * FMS_G_WARPS + warp;  // this warp's
+  const int q = tile * 32 + lane;
+  const int NW = max(1, (V + 31) / 32);
   const int t_begin = c * chunk;
-  const int t_end = min(T, t_begin + chunk);
+  const int n_rows = c < n_chunks ? min(chunk, T - t_begin) : 0;
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+
   double acc_s[MA], acc_q[MA], acc_n = 0.0;
 #pragma unroll
   for (int j = 0; j < MA; ++j) acc_s[j] = acc_q[j] = 0.0;
-  for (int t = t_begin; t < t_end; ++t) {
-    bool hit = true;
-    for (int k = 0; k < L && hit; ++k) {
-      const double xv = x[(size_t)t * L + k];
-      hit = xv >= lo[(size_t)q * L + k] - eps &&
-            xv <= hi[(size_t)q * L + k] + eps;
+
+  // Sub-chunks of FMS_G_ROWS tuples (one, at the port's chunk of 256), in
+  // order, on the same accumulators: the order of the chunk's tuples.
+  for (int sub = 0; sub < chunk; sub += FMS_G_ROWS) {  // uniform
+    const int t0 = t_begin + sub;
+    const int rows = max(0, min(FMS_G_ROWS, n_rows - sub));
+    for (int g = 0; g < G; ++g) {  // bit tt of word g: tuple g * 32 + tt
+      const int n = min(32, max(0, rows - 32 * g));
+      hits[g * 32 + lane] = n == 32 ? FULL : (1u << n) - 1u;
     }
-    for (int k = 0; k < C && hit; ++k) {
-      const int code = codes[(size_t)t * C + k];
-      hit = (unsigned)code < (unsigned)V &&
-            cat[((size_t)q * C + k) * V + code] != 0;
-    }
-    const double w = hit ? (valid ? valid[t] : 1.0) : 0.0;
+    // The range of each numeric dim: the chunk's column staged, then each
+    // tuple's value read by every lane at once.
+    for (int k = 0; k < L; ++k) {
+      const double lo_k = q < Q ? lo[(size_t)q * L + k] - eps : -inf;
+      const double hi_k = q < Q ? hi[(size_t)q * L + k] + eps : inf;
+      __syncwarp();  // the last column is read
 #pragma unroll
-    for (int j = 0; j < M; ++j) {
-      const double mv = meas[(size_t)t * ms + j];
-      acc_s[j] = __fma_rn(w, mv, acc_s[j]);
-      acc_q[j] = __fma_rn(w, __dmul_rn(mv, mv), acc_q[j]);
+      for (int g = 0; g < G; ++g) {
+        const int r = 32 * g + lane;
+        col_d[r] = r < rows ? x[(size_t)(t0 + r) * L + k] : 0.0;
+      }
+      __syncwarp();
+#pragma unroll 1
+      for (int g = 0; g < G; ++g) {
+        uint32_t keep = 0;
+#pragma unroll
+        for (int tt = 0; tt < 32; ++tt) {
+          const double v = col_d[32 * g + tt];
+          keep |= uint32_t((v >= lo_k) & (v <= hi_k)) << tt;
+        }
+        hits[g * 32 + lane] &= keep;
+      }
     }
-    acc_n = __dadd_rn(acc_n, w);
+    // Each categorical dim, its words a slice at a time (only up to the
+    // word of the largest code the block's tuples hold).
+    for (int k = 0; k < C; ++k) {
+      int mx = -1;  // the largest code in [0, V) of the warp's tuples
+      __syncwarp();
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int r = 32 * g + lane;
+        const int cd = r < rows ? codes[(size_t)(t0 + r) * C + k] : 0;
+        const bool bad = r < rows && (unsigned)cd >= (unsigned)V;
+        col_i[r] = cd;
+        hits[g * 32 + lane] &= ~__ballot_sync(FULL, bad);
+        if (r < rows && !bad) mx = max(mx, cd);
+      }
+      mx = __reduce_max_sync(FULL, mx);
+      __syncthreads();  // the last slice, fold columns and maxima are read
+      if (lane == 0) block_max[warp] = mx;
+      __syncthreads();
+      for (int w = 0; w < FMS_G_WARPS; ++w) mx = max(mx, block_max[w]);
+      const int nw = mx < 0 ? 0 : (mx >> 5) + 1;  // words any tuple reads
+      const uint32_t* set = words + ((size_t)tile * C + k) * NW * 32;
+      if (nw == 1) {  // every code below 32: one word a lane
+        const uint32_t word = set[lane];
+#pragma unroll 1
+        for (int g = 0; g < G; ++g) {
+          uint32_t keep = 0;
+#pragma unroll
+          for (int tt = 0; tt < 32; ++tt)
+            keep |= ((word >> (col_i[32 * g + tt] & 31)) & 1u) << tt;
+          hits[g * 32 + lane] &= keep;
+        }
+        continue;
+      }
+      for (int w0 = 0; w0 < nw; w0 += FMS_G_SLICE) {  // uniform
+        const int nws = min(FMS_G_SLICE, nw - w0);
+        if (w0 > 0) __syncthreads();  // the last slice is read
+        for (int i = threadIdx.x; i < nws * 8; i += 32 * FMS_G_WARPS)
+          cp_async<16>(words_s + 4 * i, set + (size_t)w0 * 32 + 4 * i);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+#pragma unroll 1
+        for (int g = 0; g < G; ++g) {
+          uint32_t keep = 0;
+#pragma unroll
+          for (int tt = 0; tt < 32; ++tt) {
+            const unsigned code = (unsigned)col_i[32 * g + tt];
+            const unsigned wi = (code >> 5) - (unsigned)w0;
+            const uint32_t word =
+                wi < (unsigned)nws ? words_s[wi * 32 + lane] : FULL;
+            keep |= ((word >> (code & 31)) & 1u) << tt;
+          }
+          hits[g * 32 + lane] &= keep;
+        }
+      }
+    }
+    // The fold: the warp's columns [valid, m_0 ..] staged where the words
+    // were, then every tuple of the sub-chunk in order.
+    __syncthreads();  // every warp is done with the words
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int r = 32 * g + lane;
+      const bool in = r < rows;
+      const size_t t = (size_t)(t0 + (in ? r : 0));
+      fold_s[r] = in ? (valid ? valid[t] : 1.0) : 0.0;
+#pragma unroll
+      for (int j = 0; j < M; ++j)
+        fold_s[(j + 1) * FMS_G_ROWS + r] = in ? meas[t * ms + j] : 0.0;
+    }
+    __syncwarp();
+#pragma unroll 1
+    for (int g = 0; g < G; ++g) {
+      const uint32_t h = hits[g * 32 + lane];
+#pragma unroll
+      for (int tt = 0; tt < 32; ++tt) {
+        const int r = 32 * g + tt;
+        const double w = (h >> tt) & 1u ? fold_s[r] : 0.0;
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          const double m = fold_s[(j + 1) * FMS_G_ROWS + r];
+          acc_s[j] = __fma_rn(w, m, acc_s[j]);
+          acc_q[j] = __fma_rn(w, __dmul_rn(m, m), acc_q[j]);
+        }
+        acc_n = __dadd_rn(acc_n, w);
+      }
+    }
   }
+  if (c >= n_chunks || q >= Q) return;
   double* dst = scratch + ((size_t)c * Q + q) * (2 * M + 1);
 #pragma unroll
   for (int j = 0; j < M; ++j) {
@@ -886,7 +1078,7 @@ static_assert(MAX_M == 8, "WITH_M lists m = 0..8");
 constexpr size_t SMEM_OPT_IN = 227 * 1024;
 
 // K1's path for a shape: 1 the register path with 32-bit category words,
-// 2 with 64-bit words, 0 fms_partials_any, 3 fms_partials_global (a shape
+// 2 with 64-bit words, 0 fms_partials_any, 3 fms_partials_stream (a shape
 // whose any-width staging outgrows a block's shared memory at one warp).
 int fms_path(int L, int C, int V, int M) {
   if (L <= FMS_LB && C <= FMS_CB) {
@@ -896,9 +1088,11 @@ int fms_path(int L, int C, int V, int M) {
   return fms_any_warp_smem(M, L, C, V) <= SMEM_OPT_IN ? 0 : 3;
 }
 
-// Warps a block: FMS_WARPS, and on the any-width path the most (4, 2 or
-// 1) whose staging fits a block's shared memory.
+// Warps a block: FMS_WARPS, on path 3 FMS_G_WARPS (chunks of one tile),
+// and on the any-width path the most (4, 2 or 1) whose staging fits a
+// block's shared memory.
 int fms_warps(int path, int L, int C, int V, int M) {
+  if (path == 3) return FMS_G_WARPS;
   if (path != 0) return FMS_WARPS;
   int w = FMS_WARPS;
   while (w > 1 && w * fms_any_warp_smem(M, L, C, V) > SMEM_OPT_IN) w /= 2;
@@ -921,7 +1115,13 @@ size_t fms_block_smem(int path, int spl, int warps, int L, int C, int V,
                       int M) {
   if (path == 1 || path == 2) return FMS_WARPS * fms_warp_smem(M, C, V, spl);
   if (path == 0) return warps * fms_any_warp_smem(M, L, C, V);
-  return 0;
+  return fms_stream_smem(M, C, V);
+}
+
+// 32-bit words of path 3's category scratch: [tile][dim][word][lane].
+long long fms_word_count(int path, int Q, int C, int V) {
+  if (path != 3) return 0;
+  return (long long)((Q + 31) / 32) * C * any_nw(V) * 32;
 }
 
 FmsKernel fms_kernel(int path, int spl, int m, int vw) {
@@ -931,8 +1131,52 @@ FmsKernel fms_kernel(int path, int spl, int m, int vw) {
   if (path == 2) WITH_M(m, (fms_partials<M, 2, FMS_SPL_WIDE>))
   if (path == 0 && vw == 1) WITH_M(m, (fms_partials_any<M, 1>))
   if (path == 0 && vw == 2) WITH_M(m, (fms_partials_any<M, 2>))
-  if (path == 0) WITH_M(m, (fms_partials_any<M, 0>))
-  WITH_M(m, (fms_partials_global<M>))
+  WITH_M(m, (fms_partials_any<M, 0>))
+}
+
+using FmsStreamKernel = void (*)(const double*, const int*, const double*,
+                                 const double*, int, const double*,
+                                 const double*, const uint32_t*, int, int,
+                                 int, int, int, int, int, int, double,
+                                 double*);
+
+FmsStreamKernel fms_stream_kernel(int m) {
+  WITH_M(m, (fms_partials_stream<M>))
+}
+
+// Path 3: the word pass, then the tile's warps over their chunks.
+int launch_stream(const double* x, const int* codes, const double* valid,
+                  const double* meas, int ms, const double* lo,
+                  const double* hi, const uint8_t* cat, int T, int Q, int L,
+                  int C, int V, int M, int chunk, int n_chunks, double eps,
+                  uint32_t* words, double* scratch, cudaStream_t s) {
+  const long long n_words = fms_word_count(3, Q, C, V);
+  if (n_words > 0) {
+    if (!words) return static_cast<int>(cudaErrorInvalidValue);
+    const long long blocks = (n_words / 32 + 7) / 8;  // a warp a word row
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    fms_words<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
+        cat, Q, C, V, any_nw(V), n_words, words);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int n_tiles = (Q + 31) / 32;
+  const long long blocks =
+      (long long)n_tiles * ((n_chunks + FMS_G_WARPS - 1) / FMS_G_WARPS);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const FmsStreamKernel kernel = fms_stream_kernel(M);
+  const size_t smem = fms_block_smem(3, 1, FMS_G_WARPS, L, C, V, M);
+  // The most this kernel asks (a full slice or M = 8's fold columns): a
+  // kernel with static shared memory may not opt into all 227 KB.
+  static uint64_t opted_in[MAX_M + 1] = {};
+  cudaError_t e = opt_in_smem(
+      reinterpret_cast<const void*>(kernel), opted_in[M],
+      static_cast<int>(fms_stream_smem(MAX_M, 1, FMS_G_SLICE * 32)));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<static_cast<unsigned>(blocks), 32 * FMS_G_WARPS, smem, s>>>(
+      x, codes, valid, meas, ms, lo, hi, words, T, Q, L, C, V, chunk,
+      n_chunks, n_tiles, eps, scratch);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The current device's SM count, read once a device (K1 asks on every
@@ -964,21 +1208,28 @@ MpaKernel mpa_kernel(int m) {
 // x: (T, L) f64; codes: (T, C) i32; valid: (T,) f64 or null (every tuple
 // valid); meas: the group's first of M <= 8 measures, rows `meas_stride`
 // apart; lo/hi: (Q, L) f64; cat: (Q, C, V) bytes (bool); scratch:
-// (ceil(T/chunk), Q, 2M+1) f64; out: (Q, 2 m_out + 1) f64, of which the
-// group writes the columns of measures col0 .. col0 + M - 1 and the count.
+// (ceil(T/chunk), Q, 2M+1) f64; words: path 3's category words, as many
+// 32-bit words as fms_plan reports (null on the other paths); out: (Q,
+// 2 m_out + 1) f64, of which the group writes the columns of measures
+// col0 .. col0 + M - 1 and the count.
 extern "C" int fms_launch(const double* x, const int* codes,
                           const double* valid, const double* meas,
                           int meas_stride, const double* lo, const double* hi,
                           const uint8_t* cat, int T, int Q, int L, int C,
                           int V, int M, int col0, int m_out, int chunk,
-                          double eps, double* scratch, double* out,
-                          void* stream) {
+                          double eps, double* scratch, uint32_t* words,
+                          double* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q <= 0) return 0;
   if (M < 0 || M > MAX_M || chunk <= 0 || col0 < 0 || col0 + M > m_out)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_chunks = T > 0 ? (T + chunk - 1) / chunk : 0;
-  if (n_chunks > 0) {
+  if (n_chunks > 0 && fms_path(L, C, V, M) == 3) {
+    const int e = launch_stream(x, codes, valid, meas, meas_stride, lo, hi,
+                                cat, T, Q, L, C, V, M, chunk, n_chunks, eps,
+                                words, scratch, s);
+    if (e) return e;
+  } else if (n_chunks > 0) {
     const int path = fms_path(L, C, V, M);
     const int spl = fms_spl(path, n_chunks, Q, sm_count());
     const int warps = fms_warps(path, L, C, V, M);
@@ -990,13 +1241,12 @@ extern "C" int fms_launch(const double* x, const int* codes,
     const FmsKernel kernel = fms_kernel(path, spl, M, vw);
     const size_t smem = fms_block_smem(path, spl, warps, L, C, V, M);
     if (smem) {
-      static uint64_t opted_in[3][3][MAX_M + 1] = {};
+      static uint64_t opted_in[3][3][MAX_M + 1] = {};  // paths 0-2
       cudaError_t e = opt_in_smem(reinterpret_cast<const void*>(kernel),
                                   opted_in[path][path ? spl > 1 : vw][M]);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    const int threads = path == 3 ? 32 * FMS_WARPS : 32 * warps;
-    kernel<<<static_cast<unsigned>(blocks), threads, smem, s>>>(
+    kernel<<<static_cast<unsigned>(blocks), 32 * warps, smem, s>>>(
         x, codes, valid, meas, meas_stride, lo, hi, cat, T, Q, L, C, V,
         chunk, n_qb, eps, scratch);
     cudaError_t e = cudaGetLastError();
@@ -1007,11 +1257,12 @@ extern "C" int fms_launch(const double* x, const int* codes,
 
 // K1's launch plan as the launch above computes it on the current device,
 // for the wrapper's fused_scan_plan: out = {path (0 any width, 1 32-bit
-// category words, 2 64-bit, 3 any width from global memory), snippets a
-// lane, snippets a block, chunks, q tiles, partial blocks, fold blocks,
-// dynamic shared memory a block, the device's SMs, tuples a ring stage,
-// the any-width path's category words (1 or 2: 32- or 64-bit words in
-// registers, 0: in shared memory or another path)}. Returns 0.
+// category words, 2 64-bit, 3 any width with streamed category words),
+// snippets a lane, snippets a block, chunks, q tiles, partial blocks, fold
+// blocks, dynamic shared memory a block, the device's SMs, tuples a ring
+// stage, the any-width path's category words (1 or 2: 32- or 64-bit words
+// in registers, 0: in shared memory or another path), path 3's 32-bit
+// category words (0 on the others), chunks a block}. Returns 0.
 extern "C" int fms_plan(int T, int Q, int M, int L, int C, int V, int chunk,
                         int* out) {
   const int path = fms_path(L, C, V, M);
@@ -1019,19 +1270,23 @@ extern "C" int fms_plan(int T, int Q, int M, int L, int C, int V, int chunk,
   const int n_sm = sm_count();
   const int spl = fms_spl(path, n_chunks, Q, n_sm);
   const int warps = fms_warps(path, L, C, V, M);
-  const int width = 32 * spl * warps;
+  // Path 3: a block is one tile of 32 snippets and `warps` chunks.
+  const int width = path == 3 ? 32 : 32 * spl * warps;
+  const int per_block = path == 3 ? warps : 1;
   const int n_qb = (Q + width - 1) / width;
   out[0] = path;
   out[1] = spl;
   out[2] = width;
   out[3] = n_chunks;
   out[4] = n_qb;
-  out[5] = n_chunks * n_qb;
+  out[5] = (n_chunks + per_block - 1) / per_block * n_qb;
   out[6] = (Q * (2 * M + 1) + 31) / 32;
   out[7] = static_cast<int>(fms_block_smem(path, spl, warps, L, C, V, M));
   out[8] = n_sm;
   out[9] = FMS_ROWS;
   out[10] = path == 0 ? any_vw(C, V) : 0;
+  out[11] = static_cast<int>(fms_word_count(path, Q, C, V));
+  out[12] = per_block;
   return 0;
 }
 

@@ -58,16 +58,30 @@
 //    and erf call). Kernels are templated on the type (the reference takes
 //    f64 and f32) and on l (0..MAX_L), so the per-dimension values stay in
 //    registers.
-//  * Any l above MAX_L takes the kernels for any width (se_cov_fwd_any,
-//    se_cov_reduce_any): one thread an entry, the ranges read where they
-//    lie, the product formed as the dimensions go, and with derivatives the
-//    clamped integrals g_k kept in a scratch (l, n_i, n_j) and the dg_k in
-//    dout until the products over the other dimensions are formed. The
-//    same arithmetic in the same order, so the same three contracts hold:
-//    the f64 per-dimension integrals are the plain version's bits, D is
-//    se_cov_derivs_ref's, and a Gram matrix (which runs the general kernel
-//    for any width) is the general kernel's bits.
+//  * Any l above MAX_L takes the kernels for any width (se_cov_any,
+//    se_cov_reduce_any; redesigned for Hopper), with the same three
+//    contracts: the f64 per-dimension integrals are the plain version's
+//    bits, D is se_cov_derivs_ref's, a Gram matrix is the general
+//    kernel's bits. What bounds them is what bounds the templated ones
+//    (the FP64 pipe), so the design keeps theirs: the Gram kernel covers
+//    the upper triangle of AT x AT tiles and evaluates each symmetric
+//    pair's antiderivatives once (tiles of 8, a pair a thread: a thread
+//    keeps its pair's derivative chains, below); the ranges and
+//    lengthscale factors of a tile are staged in shared memory, AD dims at
+//    a time, dim-major; the dims loop at run time. With derivatives a
+//    thread keeps, for AD dims k, R_k (the product of the other dims' g_j,
+//    from 1 in ascending j: the plain version's left fold, started from
+//    the running product when dim k arrives) and dg_k in shared memory,
+//    for both entries of a Gram pair (in registers they took 213 a
+//    thread: 8 warps an SM), and writes D_k = (s R_k) dg_k once; past AD
+//    dims the antiderivatives are evaluated again for each further AD
+//    dims' chains. Nothing goes through device memory but the inputs and
+//    the outputs. The general forward without derivatives
+//    (se_cov_general_any) reads its ranges where they lie: staged, it was
+//    slower. The reduction reads each element of G once for a group of up
+//    to RED_GROUP dimensions.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "async_copy.cuh"
@@ -78,7 +92,10 @@ constexpr int TI = 8;     // general forward: rows (i side) per block
 constexpr int TJ = 32;    // general forward: columns (j side) per block
 constexpr int GT = 32;    // Gram forward: side of a square tile
 constexpr int GR = 8;     // Gram forward: thread rows (GT / GR rows each)
-constexpr int MAX_L = 8;  // numeric dimensions the kernels take
+constexpr int MAX_L = 8;  // numeric dimensions the templated kernels take
+constexpr int AT = 8;     // any l, Gram forward: side of a tile (a pair a thread)
+constexpr int AD = 12;    // any l: dims staged at once, derivative chains a pass
+constexpr int RED_GROUP = 8;  // any l, reduction: dimensions a block
 constexpr int RED_THREADS = 256;
 constexpr int RED_EACH = 8;                        // elements a thread
 constexpr int RED_CHUNK = RED_THREADS * RED_EACH;  // elements a block
@@ -107,6 +124,28 @@ __device__ __forceinline__ void antideriv(T u, T z, T c1, T c2, T* f, T* df) {
   const T er = rerf(r);
   *f = rsub(rmul(c1, e), rmul(rmul(c2, u), er));
   if (grad) *df = rsub(rmul(-z, e), rmul(rmul(T(HALF_SQRT_PI), u), er));
+}
+
+// The four antiderivatives of one dimension (antideriv's arithmetic on
+// each), phase by phase: the four quotients, then the four exps, then the
+// four erfs, so that independent chains sit side by side for the
+// scheduler (each erf's branches would otherwise hold the next).
+template <typename T, bool grad>
+__device__ __forceinline__ void antideriv4(const T (&u)[4], T z, T c1, T c2,
+                                           T (&f)[4], T (&df)[4]) {
+  T r[4], e[4], er[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = rdiv(u[i], z);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) e[i] = rexp(-rmul(r[i], r[i]));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) er[i] = rerf(r[i]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = rsub(rmul(c1, e[i]), rmul(rmul(c2, u[i]), er[i]));
+    if (grad)
+      df[i] = rsub(rmul(-z, e[i]), rmul(rmul(T(HALF_SQRT_PI), u[i]), er[i]));
+  }
 }
 
 // Inclusion-exclusion over the four antiderivatives of one dimension of the
@@ -247,16 +286,23 @@ se_cov_fwd(const T* __restrict__ lo_i, const T* __restrict__ hi_i,
 }
 
 // Block `block` of the Gram grid covers tile (ti, tj), ti <= tj: the upper
-// triangle of an n_tiles x n_tiles grid of tiles, row by row.
+// triangle of an n_tiles x n_tiles grid of tiles, row by row. Row i starts
+// at block i t - i (i - 1) / 2 (t = n_tiles): the root of that quadratic,
+// corrected to the exact row.
+__host__ __device__ inline long long gram_row_start(long long t,
+                                                    long long i) {
+  return i * t - i * (i - 1) / 2;
+}
 __host__ __device__ inline void gram_tile(int n_tiles, int block, int* ti,
                                           int* tj) {
-  int i = 0, start = 0;
-  while (block >= start + (n_tiles - i)) {
-    start += n_tiles - i;
-    ++i;
-  }
-  *ti = i;
-  *tj = i + (block - start);
+  const long long t = n_tiles;
+  const double w = 2.0 * t + 1.0;
+  long long i = static_cast<long long>(0.5 * (w - sqrt(w * w - 8.0 * block)));
+  i = i < 0 ? 0 : (i > t - 1 ? t - 1 : i);
+  while (i > 0 && gram_row_start(t, i) > block) --i;
+  while (i + 1 < t && gram_row_start(t, i + 1) <= block) ++i;
+  *ti = static_cast<int>(i);
+  *tj = static_cast<int>(i + (block - gram_row_start(t, i)));
 }
 
 // Gram forward: out = K(x, x). A block of GT x GR threads owns tile (ti,
@@ -383,78 +429,230 @@ se_cov_fold(const T* __restrict__ part, int n_blocks, int l,
   if (threadIdx.x == 0) grad_ls[k] = s[0];
 }
 
-// The general forward for any l: one thread per (a, b), a block of TI x TJ,
-// the ranges and lengthscales read from global memory. With derivatives,
-// g_k goes to the scratch gs and dg_k to dout (both (l, n_i, n_j)) as the
-// dimensions go; then D_k = (s prod_{j!=k} g_j) dg_k replaces dg_k.
-template <typename T, bool derivs>
+// The general forward for any l without derivatives: one thread per
+// (a, b), a block of TI x TJ, the ranges and lengthscales read where they
+// lie. Staging them as se_cov_any does cost more in barriers than it saved
+// at improve's 128 x 2000 (3-6% slower), so this route keeps this plain
+// body; se_cov_any's general form (no Gram) runs with derivatives only.
+template <typename T>
 __global__ void __launch_bounds__(TI * TJ)
-se_cov_fwd_any(const T* __restrict__ lo_i, const T* __restrict__ hi_i,
-               const T* __restrict__ lo_j, const T* __restrict__ hi_j,
-               const T* __restrict__ ls, const T* __restrict__ norm_i,
-               const T* __restrict__ norm_j, T sigma2, int ni, int nj, int l,
-               T* __restrict__ out, T* __restrict__ dout, T* __restrict__ gs) {
+se_cov_general_any(const T* __restrict__ lo_i, const T* __restrict__ hi_i,
+                   const T* __restrict__ lo_j, const T* __restrict__ hi_j,
+                   const T* __restrict__ ls, const T* __restrict__ norm_i,
+                   const T* __restrict__ norm_j, T sigma2, int ni, int nj,
+                   int l, T* __restrict__ out) {
   const int a = blockIdx.y * TI + threadIdx.y;
   const int b = blockIdx.x * TJ + threadIdx.x;
   if (a >= ni || b >= nj) return;
-  const size_t at = (size_t)a * nj + b, plane = (size_t)ni * nj;
   T acc = T(1);
   for (int k = 0; k < l; ++k) {
     const T z = ls[k];
     const T c1 = rmul(rmul(T(-0.5), z), z), c2 = rmul(T(HALF_SQRT_PI), z);
     const T ra = lo_i[(size_t)a * l + k], rb = hi_i[(size_t)a * l + k];
     const T rc = lo_j[(size_t)b * l + k], rd = hi_j[(size_t)b * l + k];
-    T f[4], df[4] = {T(0), T(0), T(0), T(0)};
-    antideriv<T, derivs>(rsub(rb, rd), z, c1, c2, &f[0], &df[0]);
-    antideriv<T, derivs>(rsub(rb, rc), z, c1, c2, &f[1], &df[1]);
-    antideriv<T, derivs>(rsub(ra, rd), z, c1, c2, &f[2], &df[2]);
-    antideriv<T, derivs>(rsub(ra, rc), z, c1, c2, &f[3], &df[3]);
+    T f[4];
+    antideriv<T, false>(rsub(rb, rd), z, c1, c2, &f[0], nullptr);
+    antideriv<T, false>(rsub(rb, rc), z, c1, c2, &f[1], nullptr);
+    antideriv<T, false>(rsub(ra, rd), z, c1, c2, &f[2], nullptr);
+    antideriv<T, false>(rsub(ra, rc), z, c1, c2, &f[3], nullptr);
     const T ii = incl_excl(f, false);
-    const T g = ii < T(0) ? T(0) : ii;  // clamp(min=0): NaN stays NaN
-    acc = rmul(acc, g);
-    if (derivs) {
-      gs[k * plane + at] = g;
-      dout[k * plane + at] = ii >= T(0) ? incl_excl(df, false) : T(0);
-    }
+    acc = rmul(acc, ii < T(0) ? T(0) : ii);  // clamp(min=0): NaN stays NaN
   }
   const T nn = rmul(norm_i[a], norm_j[b]);
-  out[at] = rdiv(rmul(sigma2, acc), nn);
-  if (derivs) {
-    const T s = rdiv(sigma2, nn);
-    for (int k = 0; k < l; ++k) {
-      T others = T(1);
-      for (int j = 0; j < l; ++j)
-        if (j != k) others = rmul(others, gs[j * plane + at]);
-      dout[k * plane + at] = rmul(rmul(s, others), dout[k * plane + at]);
+  out[(size_t)a * nj + b] = rdiv(rmul(sigma2, acc), nn);
+}
+
+// The forwards for any l (above MAX_L): the general one with derivatives
+// (gram false: a block of RI x TJ entries, one a thread) and the Gram one
+// (gram true: the
+// upper triangle of AT x AT tiles, one pair a thread; an off-diagonal block
+// also forms the (b, a) entry from the pair's antiderivatives and writes it
+// through shared memory transposed, as se_cov_gram does). The dimensions
+// run at run time, AD at a time: the block stages the ranges and
+// lengthscale factors of AD dims of its rows, dim-major (a warp reads
+// consecutive rows: no bank conflict), then every thread folds those dims,
+// a dim's four antiderivatives phase by phase (antideriv4: more work in
+// flight a thread).
+// With derivatives a thread keeps, for the AD dims k of a pass, R_k (the
+// product of the other dims' g_j from 1 in ascending j, k skipped: the
+// plain version's left fold) and dg_k in shared memory, [k][thread], for
+// both entries of a Gram pair: R_k starts as the running product over
+// dims 0..k-1 when dim k arrives and takes every later g_j, so a dim
+// multiplies only the chains already started. Past AD dims the
+// antiderivatives are evaluated again for each further AD dims' chains.
+// D_k = (s R_k) dg_k is written once: no scratch in device memory.
+template <typename T, bool derivs, bool gram>
+__global__ void __launch_bounds__(gram ? AT * AT : (derivs ? TI / 2 : TI) * TJ)
+se_cov_any(const T* __restrict__ lo_i, const T* __restrict__ hi_i,
+           const T* __restrict__ lo_j, const T* __restrict__ hi_j,
+           const T* __restrict__ ls, const T* __restrict__ norm_i,
+           const T* __restrict__ norm_j, T sigma2, int ni, int nj, int l,
+           T* __restrict__ out, T* __restrict__ dout) {
+  constexpr int RI = gram ? AT : (derivs ? TI / 2 : TI);
+  constexpr int RJ = gram ? AT : TJ, NT = RI * RJ;
+  constexpr int KD = derivs ? AD : 1;  // chains a pass
+  constexpr int KM = derivs && gram ? AD : 1;  // mirror chains
+  __shared__ T sa[AD][RI], sb[AD][RI], sc[AD][RJ], sd[AD][RJ];
+  __shared__ T sz[AD], sc1[AD], sc2[AD], sni[RI], snj[RJ];
+  __shared__ T rs[KD][NT], dgs[KD][NT], rms[KM][NT], dgms[KM][NT];
+  __shared__ T mo[gram ? NT : 1];  // the (b, a) entries of out
+  const int tid = threadIdx.x, x = tid % RJ, y = tid / RJ;
+  int i0, j0;
+  bool mirror = false;
+  if constexpr (gram) {
+    int ti, tj;
+    gram_tile((ni + AT - 1) / AT, blockIdx.x, &ti, &tj);
+    i0 = ti * AT;
+    j0 = tj * AT;
+    mirror = ti != tj;  // uniform over the block
+  } else {
+    i0 = blockIdx.y * RI;
+    j0 = blockIdx.x * RJ;
+  }
+  const int a = i0 + y, b = j0 + x;
+  const bool in = a < ni && b < nj;
+  // Rows past n: the unit range [0, 1] and norm 1, never written.
+  if (tid < RI) sni[tid] = i0 + tid < ni ? norm_i[i0 + tid] : T(1);
+  if (tid < RJ) snj[tid] = j0 + tid < nj ? norm_j[j0 + tid] : T(1);
+  const size_t plane = (size_t)ni * nj;
+  const int passes = derivs ? (l + AD - 1) / AD : 1;
+  for (int p = 0; p < passes; ++p) {
+    const int k0 = p * AD;
+    T P = T(1), Pm = T(1);  // the product over the dims so far, (a, b), (b, a)
+    for (int s0 = 0; s0 < l; s0 += AD) {
+      const int ns = min(AD, l - s0);
+      __syncthreads();  // the last slice (and the last pass) is read
+      for (int e = tid; e < ns * RI; e += NT) {
+        const int k = e / RI, r = e % RI, row = i0 + r;
+        const bool ok = row < ni;
+        sa[k][r] = ok ? lo_i[(size_t)row * l + s0 + k] : T(0);
+        sb[k][r] = ok ? hi_i[(size_t)row * l + s0 + k] : T(1);
+      }
+      for (int e = tid; e < ns * RJ; e += NT) {
+        const int k = e / RJ, r = e % RJ, row = j0 + r;
+        const bool ok = row < nj;
+        sc[k][r] = ok ? lo_j[(size_t)row * l + s0 + k] : T(0);
+        sd[k][r] = ok ? hi_j[(size_t)row * l + s0 + k] : T(1);
+      }
+      if (tid < ns) {
+        const T z = ls[s0 + tid];
+        sz[tid] = z;
+        sc1[tid] = rmul(rmul(T(-0.5), z), z);
+        sc2[tid] = rmul(T(HALF_SQRT_PI), z);
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int k = 0; k < ns; ++k) {
+        const int j = s0 + k, cj = j - k0;  // dim j's chain of this pass
+        const T ra = sa[k][y], rb = sb[k][y], rc = sc[k][x], rd = sd[k][x];
+        const T z = sz[k], c1 = sc1[k], c2 = sc2[k];
+        const T u[4] = {rsub(rb, rd), rsub(rb, rc), rsub(ra, rd),
+                        rsub(ra, rc)};
+        T f[4], df[4] = {T(0), T(0), T(0), T(0)};
+        antideriv4<T, derivs>(u, z, c1, c2, f, df);
+        const T ii = incl_excl(f, false), jj = incl_excl(f, true);
+        const T g = ii < T(0) ? T(0) : ii;  // clamp(min=0): NaN stays NaN
+        const T gm = jj < T(0) ? T(0) : jj;  // the (b, a) entry's
+        const bool both = gram && mirror;
+        if constexpr (derivs) {
+          // The chains started (c < cj: uniform), loaded ahead of the test
+          // so that their loads overlap.
+#pragma unroll
+          for (int c = 0; c < KD; ++c) {
+            const T r = rs[c][tid], rm = rms[c % KM][tid];
+            if (c < cj) {
+              rs[c][tid] = rmul(r, g);
+              if (both) rms[c % KM][tid] = rmul(rm, gm);
+            }
+          }
+          if (cj >= 0 && cj < KD) {
+            rs[cj][tid] = P;
+            dgs[cj][tid] = ii >= T(0) ? incl_excl(df, false) : T(0);
+            if (both) {
+              rms[cj % KM][tid] = Pm;
+              dgms[cj % KM][tid] = jj >= T(0) ? incl_excl(df, true) : T(0);
+            }
+          }
+        }
+        P = rmul(P, g);
+        if (both) Pm = rmul(Pm, gm);
+      }
+    }
+    // norm_a norm_b: the (b, a) entry's norm_b norm_a has the same bits.
+    const T nn = rmul(sni[y], snj[x]);
+    const size_t at = (size_t)a * nj + b;
+    const int nk = min(KD, l - k0);
+    if constexpr (derivs) {
+      const T s = rdiv(sigma2, nn);
+      for (int c = 0; c < nk; ++c) {
+        if (in) dout[(k0 + c) * plane + at] = rmul(rmul(s, rs[c][tid]),
+                                                   dgs[c][tid]);
+        if (gram && mirror)  // in place: the (b, a) D_k
+          dgms[c][tid] = rmul(rmul(s, rms[c][tid]), dgms[c][tid]);
+      }
+    }
+    if (p == 0) {
+      if (in) out[at] = rdiv(rmul(sigma2, P), nn);
+      if (gram && mirror) mo[tid] = rdiv(rmul(sigma2, Pm), nn);
+    }
+    if (gram && mirror) {
+      __syncthreads();
+      // Thread (x, y) writes row j0 + y, column i0 + x: the (b, a) entry
+      // of the pair thread (y, x) formed.
+      const int row = j0 + y, col = i0 + x, src = x * RJ + y;
+      if (row < nj && col < ni) {
+        const size_t mt = (size_t)row * nj + col;
+        if (p == 0) out[mt] = mo[src];
+        if constexpr (derivs)
+          for (int c = 0; c < nk; ++c)
+            dout[(k0 + c) * plane + mt] = dgms[c][src];
+      }
     }
   }
 }
 
-// part[block, k] for dimension k = blockIdx.y, for any l: se_cov_reduce's
-// arithmetic for one dimension (the same sums in the same order).
+// part[block, k] for the dimensions k of group blockIdx.y (at most
+// RED_GROUP, any l): se_cov_reduce's arithmetic, each G element read once
+// for its group's dimensions (the same sums in the same order for each
+// dimension, whatever the group).
 template <typename T>
 __global__ void __launch_bounds__(RED_THREADS)
 se_cov_reduce_any(const T* __restrict__ G, const T* __restrict__ D,
                   long long m, int l, T* __restrict__ part) {
-  __shared__ T warp_s[RED_THREADS / 32];
-  const int k = blockIdx.y;
+  __shared__ T warp_s[RED_THREADS / 32][RED_GROUP];
+  const int k0 = blockIdx.y * RED_GROUP, nk = min(RED_GROUP, l - k0);
   const long long base = (long long)blockIdx.x * RED_CHUNK + threadIdx.x;
-  T acc = T(0);
+  T g[RED_EACH], acc[RED_GROUP];
 #pragma unroll
   for (int i = 0; i < RED_EACH; ++i) {
     const long long e = base + (long long)i * RED_THREADS;
-    if (e < m) acc += G[e] * D[k * m + e];
+    g[i] = e < m ? G[e] : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < RED_GROUP; ++k) {
+    acc[k] = T(0);
+    if (k < nk) {
+#pragma unroll
+      for (int i = 0; i < RED_EACH; ++i) {
+        const long long e = base + (long long)i * RED_THREADS;
+        if (e < m) acc[k] += g[i] * D[(k0 + k) * m + e];
+      }
+    }
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) warp_s[warp] = acc;
+  for (int k = 0; k < RED_GROUP; ++k) {
+    T v = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_s[warp][k] = v;
+  }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < nk) {
     T t = T(0);
-    for (int w = 0; w < RED_THREADS / 32; ++w) t += warp_s[w];
-    part[(size_t)blockIdx.x * l + k] = t;
+    for (int w = 0; w < RED_THREADS / 32; ++w) t += warp_s[w][threadIdx.x];
+    part[(size_t)blockIdx.x * l + k0 + threadIdx.x] = t;
   }
 }
 
@@ -494,7 +692,7 @@ struct Args {
   const T *lo_i, *hi_i, *lo_j, *hi_j, *ls, *norm_i, *norm_j;
   T sigma2;
   int ni, nj;
-  T *out, *dout, *gs;
+  T *out, *dout;
 };
 
 template <typename T, int L, bool derivs>
@@ -523,19 +721,18 @@ int gram_l(const Args<T>& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Any l above MAX_L, a Gram matrix too: the general kernel for any width.
-template <typename T>
-int fwd_any(const Args<T>& p, int l, cudaStream_t s) {
-  if (p.dout && !p.gs) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((p.nj + TJ - 1) / TJ, (p.ni + TI - 1) / TI);
-  if (p.dout)
-    se_cov_fwd_any<T, true><<<grid, dim3(TJ, TI), 0, s>>>(
-        p.lo_i, p.hi_i, p.lo_j, p.hi_j, p.ls, p.norm_i, p.norm_j, p.sigma2,
-        p.ni, p.nj, l, p.out, p.dout, p.gs);
-  else
-    se_cov_fwd_any<T, false><<<grid, dim3(TJ, TI), 0, s>>>(
-        p.lo_i, p.hi_i, p.lo_j, p.hi_j, p.ls, p.norm_i, p.norm_j, p.sigma2,
-        p.ni, p.nj, l, p.out, nullptr, nullptr);
+// Any l above MAX_L: the general or the Gram forward for any width.
+template <typename T, bool derivs, bool gram>
+int any_l(const Args<T>& p, int l, cudaStream_t s) {
+  constexpr int RI = derivs ? TI / 2 : TI;  // general rows: shared chains
+  dim3 grid((p.nj + TJ - 1) / TJ, (p.ni + RI - 1) / RI);
+  if (gram) {
+    const long long t = (p.ni + AT - 1) / AT;
+    grid = dim3(static_cast<unsigned>(t * (t + 1) / 2));
+  }
+  se_cov_any<T, derivs, gram><<<grid, dim3(gram ? AT * AT : RI * TJ), 0, s>>>(
+      p.lo_i, p.hi_i, p.lo_j, p.hi_j, p.ls, p.norm_i, p.norm_j, p.sigma2,
+      p.ni, p.nj, l, p.out, p.dout);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -544,7 +741,16 @@ int forward(bool gram, const Args<T>& p, int l, void* stream) {
   if (l < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (p.ni <= 0 || p.nj <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (l > MAX_L) return fwd_any(p, l, s);
+  if (l > MAX_L) {
+    if (gram && p.dout) return any_l<T, true, true>(p, l, s);
+    if (gram) return any_l<T, false, true>(p, l, s);
+    if (p.dout) return any_l<T, true, false>(p, l, s);
+    se_cov_general_any<T><<<dim3((p.nj + TJ - 1) / TJ, (p.ni + TI - 1) / TI),
+                            dim3(TJ, TI), 0, s>>>(
+        p.lo_i, p.hi_i, p.lo_j, p.hi_j, p.ls, p.norm_i, p.norm_j, p.sigma2,
+        p.ni, p.nj, l, p.out);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (gram && p.dout) SE_WITH_L(l, (gram_l<T, L, true>(p, s)))
   if (gram) SE_WITH_L(l, (gram_l<T, L, false>(p, s)))
   if (p.dout) SE_WITH_L(l, (fwd_l<T, L, true>(p, s)))
@@ -569,9 +775,10 @@ template <typename T>
 int reduce_any(const T* G, const T* D, long long m, int l, T* part,
                T* grad_ls, cudaStream_t s) {
   const long long blocks = (m + RED_CHUNK - 1) / RED_CHUNK;
-  if (l > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  se_cov_reduce_any<T><<<dim3(static_cast<unsigned>(blocks), l), RED_THREADS,
-                         0, s>>>(G, D, m, l, part);
+  const int groups = (l + RED_GROUP - 1) / RED_GROUP;
+  if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  se_cov_reduce_any<T><<<dim3(static_cast<unsigned>(blocks), groups),
+                         RED_THREADS, 0, s>>>(G, D, m, l, part);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   se_cov_fold<T><<<l, FOLD_THREADS, 0, s>>>(part, static_cast<int>(blocks),
@@ -610,19 +817,17 @@ int probe(const T* u, T z, int m, T* f, T* df, void* stream) {
 // one type: lo_i, hi_i (ni, l); lo_j, hi_j (nj, l); ls (l); norm_i (ni);
 // norm_j (nj); out (ni, nj); dout (l, ni, nj), or null for no derivatives.
 // The Gram entry takes one side: lo, hi (n, l), norm (n), out (n, n), dout
-// (l, n, n) or null. gs is an (l, n_i, n_j) scratch for the derivatives
-// when l > 8 (null otherwise). The reduction: G (m), D (l, m), part
-// (ceil(m / 2048), l) scratch, grad_ls (l). Kernels run on `stream`,
-// nothing is allocated here, and the return value is cudaGetLastError()
-// (cudaErrorInvalidValue for derivatives at l > 8 without gs).
+// (l, n, n) or null. The reduction: G (m), D (l, m), part (ceil(m /
+// 2048), l) scratch, grad_ls (l). Kernels run on `stream`, nothing is
+// allocated here, and the return value is cudaGetLastError().
 extern "C" int se_cov_launch_f64(const double* lo_i, const double* hi_i,
                                  const double* lo_j, const double* hi_j,
                                  const double* ls, const double* norm_i,
                                  const double* norm_j, double sigma2,
                                  int ni, int nj, int l, double* out,
-                                 double* dout, double* gs, void* stream) {
+                                 double* dout, void* stream) {
   return forward<double>(false, {lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j,
-                                 sigma2, ni, nj, out, dout, gs}, l, stream);
+                                 sigma2, ni, nj, out, dout}, l, stream);
 }
 
 extern "C" int se_cov_launch_f32(const float* lo_i, const float* hi_i,
@@ -630,29 +835,28 @@ extern "C" int se_cov_launch_f32(const float* lo_i, const float* hi_i,
                                  const float* ls, const float* norm_i,
                                  const float* norm_j, double sigma2,
                                  int ni, int nj, int l, float* out,
-                                 float* dout, float* gs, void* stream) {
+                                 float* dout, void* stream) {
   return forward<float>(false, {lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j,
                                 static_cast<float>(sigma2), ni, nj, out,
-                                dout, gs}, l, stream);
+                                dout}, l, stream);
 }
 
 extern "C" int se_cov_gram_launch_f64(const double* lo, const double* hi,
                                       const double* ls, const double* norm,
                                       double sigma2, int n, int l,
                                       double* out, double* dout,
-                                      double* gs, void* stream) {
+                                      void* stream) {
   return forward<double>(true, {lo, hi, lo, hi, ls, norm, norm, sigma2, n,
-                                n, out, dout, gs}, l, stream);
+                                n, out, dout}, l, stream);
 }
 
 extern "C" int se_cov_gram_launch_f32(const float* lo, const float* hi,
                                       const float* ls, const float* norm,
                                       double sigma2, int n, int l,
-                                      float* out, float* dout, float* gs,
+                                      float* out, float* dout,
                                       void* stream) {
   return forward<float>(true, {lo, hi, lo, hi, ls, norm, norm,
-                               static_cast<float>(sigma2), n, n, out, dout,
-                               gs},
+                               static_cast<float>(sigma2), n, n, out, dout},
                         l, stream);
 }
 
@@ -682,14 +886,15 @@ extern "C" int se_cov_probe_f32(const float* u, double z, int m, float* f,
 // The launch plans, for the wrapper's tests, of a Gram matrix of n
 // snippets over l dims: out = {Gram tile side, Gram thread rows a block,
 // tiles a side at n, Gram blocks at n, elements a reduction block, the
-// widest l with its own kernels}; tiles, when not null, gets (ti, tj) of
-// every Gram block. Above that l a Gram matrix runs the general kernel
-// for any width: no Gram blocks (tiles a side and blocks 0). Returns 0.
+// widest l with templated kernels}; tiles, when not null, gets (ti, tj)
+// of every Gram block. Above that l the Gram kernel for any width takes
+// tiles of AT x AT, a pair a thread (AT thread rows). Returns 0.
 extern "C" int se_cov_plan(int n, int l, int* out, int* tiles) {
-  const int t = l <= MAX_L ? (n + GT - 1) / GT : 0;
+  const int side = l <= MAX_L ? GT : AT;
+  const int t = (n + side - 1) / side;
   const int blocks = t * (t + 1) / 2;
-  out[0] = GT;
-  out[1] = GR;
+  out[0] = side;
+  out[1] = l <= MAX_L ? GR : AT;
   out[2] = t;
   out[3] = blocks;
   out[4] = RED_CHUNK;

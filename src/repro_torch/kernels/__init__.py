@@ -38,7 +38,8 @@ Kernels:
 
 Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches``, which ``launch_counts`` reads and
-``reset_launch_counts`` zeroes.
+``reset_launch_counts`` zeroes (with K3's launches by shape,
+``se_covariance.ops.launch_shapes``).
 """
 from __future__ import annotations
 
@@ -187,5 +188,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts():
+    from repro_torch.kernels.se_covariance import ops as se_ops
+
     for fn in _wrappers().values():
         fn.launches = 0
+    se_ops.launch_shapes.clear()

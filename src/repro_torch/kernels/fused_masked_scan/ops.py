@@ -27,7 +27,9 @@ column's bits do not depend on the group it rides in.
 ``masked_partials_plan`` is K4's launch plan (grid and scratch), which the
 CPU tests check and the card holds against the built library's. K1's plan
 (path, snippets a lane, grid, shared memory) is decided in the library
-alone: ``fused_scan_plan`` reads it from there.
+alone: ``fused_scan_plan`` reads it from there. Where the library takes
+path 3 (category sets past a block's shared memory), the wrapper also
+allocates that path's category words, as many as the plan reports.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "fms_launch": ([_P] * 4 + [_I] + [_P] * 3 + [_I] * 9 + [ctypes.c_double]
-                   + [_P] * 3),
+                   + [_P] * 4),
     "fms_plan": [_I] * 7 + [_P],
     "mpa_launch": [_P] * 2 + [_I] * 7 + [_P] * 3,
     "mpa_plan": [_I] * 4 + [_P],
@@ -97,9 +99,11 @@ class FusedScanPlan(NamedTuple):
     with 64-bit words, 0 is the kernel for any width (its category sets
     as the register path's words in registers, ``words`` 1 or 2, or as
     words in shared memory, 0), 3 that kernel's shape past a block's shared
-    memory (every value read where it lies); ``spl`` snippets a lane;
-    ``rows`` tuples a ring stage. Block ``b`` folds chunk ``b //
-    n_q_tiles`` for snippet tile ``b % n_q_tiles``."""
+    memory (the sets as 32-bit words in a scratch of ``word_scratch``
+    words, streamed through shared memory a slice at a time); ``spl``
+    snippets a lane; ``rows`` tuples a ring stage. Block ``b`` folds
+    ``chunks_a_block`` chunks from ``b // n_q_tiles * chunks_a_block`` for
+    snippet tile ``b % n_q_tiles``."""
 
     path: int
     spl: int
@@ -112,6 +116,8 @@ class FusedScanPlan(NamedTuple):
     n_sm: int
     rows: int
     words: int
+    word_scratch: int
+    chunks_a_block: int
 
 
 def fused_scan_plan(t_n, q_n, m, l, c, v):
@@ -208,15 +214,22 @@ def fused_masked_scan(x, codes, measures, lo, hi, cat, valid=None):
     if q_n == 0:
         return out
     scratch = _group_scratch(t_n, q_n, m, dev)
+    groups = measure_groups(m)
+    n_words = max(fused_scan_plan(t_n, q_n, count, l, c, v).word_scratch
+                  for _, count in groups)
+    words = (torch.empty(n_words, dtype=torch.int32, device=dev)
+             if n_words else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     entry = _entry("fms_launch")
-    for first, count in measure_groups(m):
+    for first, count in groups:
         err = entry(
             x.data_ptr(), codes.data_ptr(),
             None if valid is None else valid.data_ptr(),
             measures.data_ptr() + 8 * first, m, lo.data_ptr(), hi.data_ptr(),
             cat.data_ptr(), t_n, q_n, l, c, v, count, first, m, FMS_CHUNK_T,
-            RANGE_EPS, scratch.data_ptr(), out.data_ptr(), stream)
+            RANGE_EPS, scratch.data_ptr(),
+            None if words is None else words.data_ptr(), out.data_ptr(),
+            stream)
         check_cuda_error(err, "fused_masked_scan")
         fused_masked_scan.launches += 1
     return out

@@ -22,9 +22,9 @@ antiderivatives once and gives the general kernel's bits.
   the norms or ``sigma2``, so asking for one raises
   ``NotImplementedError``. They take any number of numeric dimensions:
   up to ``SE_MAX_L`` the kernels are templated on it, above it the kernels
-  for any width run (a Gram matrix then takes the general kernel, and the
-  derivatives need an (l, n_i, n_j) scratch). A missing ``nvcc``, a failed
-  build or a launch error raises.
+  for any width run (a Gram matrix on tiles of ``SE_ANY_TILE``, each pair
+  once; no scratch beyond the outputs). A missing ``nvcc``, a failed build
+  or a launch error raises.
 
 ``se_cov_derivs(...)`` returns ``(K, D)`` from the general kernel with
 derivatives, ``se_cov_gram_derivs(lo, hi, ls, sigma2, norm)`` the same
@@ -39,11 +39,15 @@ Launch counts, one integer a kernel: ``se_cov_matrix.launches`` (the
 general forward), ``se_cov_gram.launches`` (the Gram forward),
 ``se_cov_derivs.launches`` (forwards of either kind that wrote
 derivatives) and ``se_cov_grad.launches`` (the reduction: every backward).
+``launch_shapes`` counts the forwards' launches by (route, n_i, n_j, l),
+route one of ``general``, ``general+derivs``, ``gram`` and
+``gram+derivs`` (``reset_launch_counts`` empties it too).
 ``se_cov_plan`` is the Gram kernel's launch plan, which the CPU tests check
 and the card holds against the built library's.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple
 
@@ -62,19 +66,21 @@ SE_GRAM_TILE = 32  # side of the Gram kernel's square tiles (see the .cu)
 SE_GRAM_ROWS = 8  # thread rows of a Gram block (SE_GRAM_TILE / 8 rows each)
 SE_REDUCE_CHUNK = 2048  # elements one block of the reduction sums
 SE_MAX_L = 8  # widest l with kernels of its own; wider l run the any-l ones
+SE_ANY_TILE = 8  # the any-l Gram kernel: tile side and thread rows (a pair a thread)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _LL = ctypes.c_longlong
 _ENTRIES = {
-    "se_cov_launch": [_P] * 7 + [_D] + [_I] * 3 + [_P] * 4,
-    "se_cov_gram_launch": [_P] * 4 + [_D] + [_I] * 2 + [_P] * 4,
+    "se_cov_launch": [_P] * 7 + [_D] + [_I] * 3 + [_P] * 3,
+    "se_cov_gram_launch": [_P] * 4 + [_D] + [_I] * 2 + [_P] * 3,
     "se_cov_reduce_launch": [_P, _P, _LL, _I, _P, _P, _P],
     "se_cov_probe": [_P, _D, _I, _P, _P, _P],
     "se_cov_plan": [_I, _I, _P, _P],
 }
 _SUFFIX = {torch.float64: "_f64", torch.float32: "_f32"}
+launch_shapes = collections.Counter()  # (route, n_i, n_j, l): launches
 
 
 def _entry(name, dtype=None):
@@ -88,8 +94,10 @@ def _entry(name, dtype=None):
 
 class SePlan(NamedTuple):
     """The Gram kernel's grid over the upper triangle of square tiles, and
-    the reduction's block size. Above ``SE_MAX_L`` dimensions a Gram matrix
-    runs the general kernel for any width: no Gram blocks."""
+    the reduction's block size. Up to ``SE_MAX_L`` dimensions the tiles are
+    ``SE_GRAM_TILE`` square with ``SE_GRAM_ROWS`` thread rows; above it the
+    kernel for any width takes ``SE_ANY_TILE`` square tiles, a pair a
+    thread."""
 
     n: int
     tile: int
@@ -128,9 +136,11 @@ class SePlan(NamedTuple):
 
 def se_cov_plan(n, l=3):
     """K3's launch plan for a Gram matrix of n snippets over l dims."""
-    t = -(-n // SE_GRAM_TILE) if l <= SE_MAX_L else 0
-    return SePlan(n, SE_GRAM_TILE, SE_GRAM_ROWS, t, t * (t + 1) // 2,
-                  SE_REDUCE_CHUNK, SE_MAX_L)
+    tile, rows = ((SE_GRAM_TILE, SE_GRAM_ROWS) if l <= SE_MAX_L
+                  else (SE_ANY_TILE, SE_ANY_TILE))
+    t = -(-n // tile)
+    return SePlan(n, tile, rows, t, t * (t + 1) // 2, SE_REDUCE_CHUNK,
+                  SE_MAX_L)
 
 
 def se_cov_plan_of_library(n, l=3):
@@ -175,13 +185,11 @@ def _stream(dev):
 
 
 def _outputs(n_i, n_j, l, like, derivs):
-    """(out, D or None, the any-l kernels' scratch for D or None)."""
+    """(out, D or None)."""
     def new(*shape):
         return torch.empty(shape, dtype=like.dtype, device=like.device)
 
-    d = new(l, n_i, n_j) if derivs else None
-    gs = new(l, n_i, n_j) if derivs and l > SE_MAX_L else None
-    return new(n_i, n_j), d, gs
+    return new(n_i, n_j), new(l, n_i, n_j) if derivs else None
 
 
 def _ptr(t):
@@ -192,31 +200,33 @@ def _launch_general(lo_i, hi_i, lo_j, hi_j, ls, sigma2, norm_i, norm_j, *,
                     derivs):
     """The general kernel: (out, D or None)."""
     n_i, n_j, l = _checked(lo_i, hi_i, lo_j, hi_j, ls, norm_i, norm_j)
-    out, d, gs = _outputs(n_i, n_j, l, lo_i, derivs)
+    out, d = _outputs(n_i, n_j, l, lo_i, derivs)
     if n_i == 0 or n_j == 0:
         return out, d
     err = _entry("se_cov_launch", lo_i.dtype)(
         lo_i.data_ptr(), hi_i.data_ptr(), lo_j.data_ptr(), hi_j.data_ptr(),
         ls.data_ptr(), norm_i.data_ptr(), norm_j.data_ptr(), sigma2,
-        n_i, n_j, l, out.data_ptr(), _ptr(d), _ptr(gs), _stream(lo_i.device))
+        n_i, n_j, l, out.data_ptr(), _ptr(d), _stream(lo_i.device))
     check_cuda_error(err, "se_cov_matrix")
     se_cov_matrix.launches += 1
     se_cov_derivs.launches += int(derivs)
+    launch_shapes["general+derivs" if derivs else "general", n_i, n_j, l] += 1
     return out, d
 
 
 def _launch_gram(lo, hi, ls, sigma2, norm, *, derivs):
     """The Gram kernel: (out, D or None) of the batch against itself."""
     n, _, l = _checked(lo, hi, lo, hi, ls, norm, norm)
-    out, d, gs = _outputs(n, n, l, lo, derivs)
+    out, d = _outputs(n, n, l, lo, derivs)
     if n == 0:
         return out, d
     err = _entry("se_cov_gram_launch", lo.dtype)(
         lo.data_ptr(), hi.data_ptr(), ls.data_ptr(), norm.data_ptr(), sigma2,
-        n, l, out.data_ptr(), _ptr(d), _ptr(gs), _stream(lo.device))
+        n, l, out.data_ptr(), _ptr(d), _stream(lo.device))
     check_cuda_error(err, "se_cov_gram")
     se_cov_gram.launches += 1
     se_cov_derivs.launches += int(derivs)
+    launch_shapes["gram+derivs" if derivs else "gram", n, n, l] += 1
     return out, d
 
 

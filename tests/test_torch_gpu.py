@@ -583,11 +583,14 @@ def test_cuda_k1_and_k4_take_any_measure_count(m):
 @pytest.mark.parametrize("l,cats,path", [(2, (3, 2, 5), 1), (3, (40, 2), 2),
                                          (6, (3,), 0), (2, (3, 2, 2, 2, 2), 0),
                                          (1, (70,), 0), (4, (), 1),
-                                         (0, (4,), 1), (2, (30_000, 3), 3)])
+                                         (0, (4,), 1), (2, (30_000, 3), 3),
+                                         (2, (3, 100_000), 3)])
 def test_cuda_k1_every_path_matches_plain_version_and_k4(l, cats, path):
     """Each of K1's paths (bounds and 32- or 64-bit category words in
-    registers, or the kernel for any width) against the plain version, K4
-    bitwise K1, and the path the built library takes for the shape."""
+    registers, the kernel for any width, or its category words streamed
+    through shared memory, past one block's shared memory at 100,000
+    values) against the plain version, K4 bitwise K1, and the path the
+    built library takes for the shape."""
     t, q_n = 3001, 200
     rng = np.random.default_rng(l * 10 + len(cats))
     num = torch.as_tensor(rng.uniform(0, 1, (t, l))).cuda()
@@ -634,8 +637,9 @@ def test_cuda_k1_rows_do_not_depend_on_q():
 def test_k1_library_plan_covers_every_snippet(t, q_n, m, l, c, v, path,
                                               spl):
     """The built library's K1 plan: the path a shape takes, snippets a
-    lane, every snippet in one block, the scratch the wrapper allocates
-    (K4's plan) enough for its chunks, shared memory within the opt-in."""
+    lane, every snippet and chunk in one block, K4's scratch (the plan the
+    wrapper allocates from) what the launch takes, category words on path
+    3 alone, shared memory within the opt-in."""
     plan = pt_fms.fused_scan_plan(t, q_n, m, l, c, v)
     assert (plan.path, plan.spl) == (path, spl)
     assert plan.n_sm == torch.cuda.get_device_properties(
@@ -644,11 +648,14 @@ def test_k1_library_plan_covers_every_snippet(t, q_n, m, l, c, v, path,
     assert plan.n_q_tiles * plan.tile_q >= q_n > (plan.n_q_tiles - 1) * (
         plan.tile_q)
     assert plan.n_chunks == -(-t // pt_fms.FMS_CHUNK_T)
-    assert plan.blocks == plan.n_chunks * plan.n_q_tiles
+    assert plan.chunks_a_block == (8 if path == 3 else 1)
+    assert plan.blocks == -(-plan.n_chunks // plan.chunks_a_block) * (
+        plan.n_q_tiles)
     k4 = pt_fms.masked_partials_plan(t, q_n, m)
     assert k4.scratch == (plan.n_chunks, q_n, 2 * m + 1)
     assert plan.fold_blocks == k4.fold_blocks
-    assert (plan.smem > 0) == (path != 3) and plan.smem <= 227 * 1024
+    assert 0 < plan.smem <= 227 * 1024
+    assert (plan.word_scratch > 0) == (path == 3)
     assert plan.rows > 0
 
 
@@ -840,15 +847,17 @@ def _k3_in_kernel_order(args):
     return sigma2 * seq / (norm_i[:, None] * norm_j[None, :])
 
 
-@pytest.mark.parametrize("l", [9, 12])
+@pytest.mark.parametrize("l", [9, 12, 17])
 def test_cuda_se_cov_takes_any_l(l):
-    """K3 above its templated widths, under its three contracts: the
-    general forward's f64 per-dimension integrals are the plain version's
-    (bitwise in the kernels' product order; rtol 1e-12 against the plain
-    forward, f32 at the reference's 2e-5 / 1e-7); the Gram forward is the
-    general one bitwise; D is ``se_cov_derivs_ref`` bitwise. The gradient
-    against autograd of the plain version at rtol 1e-9, the Gram route's
-    bitwise the general route's."""
+    """K3 above its templated widths (l = 17: past the 12 dims the kernels
+    stage, and keep derivative chains for, at once), under its three
+    contracts: the general forward's f64 per-dimension integrals are the
+    plain version's (bitwise in the kernels' product order; rtol 1e-12
+    against the plain forward, f32 at the reference's 2e-5 / 1e-7); the
+    Gram forward is the general one bitwise; D is ``se_cov_derivs_ref``
+    bitwise, from the general and the Gram forward. The gradient against
+    autograd of the plain version at rtol 1e-9, the Gram route's bitwise
+    the general route's. n = 70 and 45: no multiple of a tile."""
     for dtype, rtol, atol in ((torch.float64, 1e-12, 0.0),
                               (torch.float32, 2e-5, 1e-7)):
         args = _se_args(70, 45, l, seed=l, dtype=dtype)
@@ -877,6 +886,9 @@ def test_cuda_se_cov_takes_any_l(l):
     k_g, d_g = pt_se.se_cov_gram_derivs(lo, hi, ls, 1.7, norm)
     assert torch.equal(d_g, pt_se.se_cov_derivs(lo, hi, lo, hi, ls, 1.7,
                                                 norm, norm)[1])
+    assert torch.equal(d_g, se_cov_derivs_ref(lo, hi, lo, hi, ls, 1.7, norm,
+                                              norm)[1])
+    assert torch.equal(k_g, pt_se.se_cov_gram(lo, hi, ls, 1.7, norm))
     z = ls.clone().requires_grad_(True)
     g_sq = torch.as_tensor(np.random.default_rng(l + 1).normal(size=(70, 70)),
                            device="cuda")
@@ -884,6 +896,24 @@ def test_cuda_se_cov_takes_any_l(l):
                                  g_sq)
     assert torch.equal(via, pt_se.se_cov_grad(lo, hi, lo, hi, ls, 1.7, norm,
                                               norm, g_sq))
+
+
+@pytest.mark.parametrize("l", [12, 17])
+def test_cuda_se_cov_gram_derivs_takes_no_scratch(l):
+    """A Gram forward with derivatives for any l allocates its outputs (K
+    and D, (1 + l) n^2 numbers) and no (l, n, n) scratch."""
+    n = 500
+    sq = _se_args(n, n, l, seed=l + 5)
+    lo, hi, ls, norm = sq[0], sq[1], sq[4], sq[6]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k_g, d_g = pt_se.se_cov_gram_derivs(lo, hi, ls, 1.7, norm)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    outputs = k_g.numel() * 8 + d_g.numel() * 8
+    assert outputs == 8 * (1 + l) * n * n
+    assert peak < outputs + 8 * l * n * n // 2, (peak, outputs)
 
 
 def test_refit_learning_sigma_on_the_card_lowers_every_nll():

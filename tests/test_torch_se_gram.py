@@ -6,7 +6,9 @@ forward saved. Neither runs here, so these tests hold what they rest on:
 
   - the Gram kernel's launch plan (``se_cov_plan``, the pure-Python twin of
     the library's): every entry of an n x n matrix is written exactly once,
-    from the antiderivatives of its own pair, at n in {1, 31, 32, 33, 2000};
+    from the antiderivatives of its own pair, at n in {1, 31, 32, 33, 2000}
+    for l = 3 (the templated kernel's tiles) and at l = 9 and 12 (the
+    kernel for any l's);
   - the plain antiderivative F(u; z) is bitwise even (its derivative too)
     over a grid holding 0, subnormals, erf's branch points and |u/z| > 6,
     and the plain erf bitwise odd, in float64 and float32;
@@ -39,9 +41,16 @@ from repro_torch.kernels.se_covariance import ref as pt_ref  # noqa: E402
 F64 = torch.float64
 
 
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 2000])
-def test_gram_plan_writes_every_entry_once_from_its_own_pair(n):
-    plan = pt_se.se_cov_plan(n)
+@pytest.mark.parametrize("n,l", [(1, 3), (31, 3), (32, 3), (33, 3),
+                                 (2000, 3), (1, 9), (70, 9), (257, 9),
+                                 (33, 12), (2000, 12)],
+                         ids=["1", "31", "32", "33", "2000", "1-l9", "70-l9",
+                              "257-l9", "33-l12", "2000-l12"])
+def test_gram_plan_writes_every_entry_once_from_its_own_pair(n, l):
+    """Up to l = 8 the templated Gram kernel's 32 x 32 tiles, above it the
+    kernel for any l's 8 x 8 tiles."""
+    plan = pt_se.se_cov_plan(n, l)
+    assert plan.tile == (32 if l <= pt_se.SE_MAX_L else 8)
     t = -(-n // plan.tile)
     assert plan.n_tiles == t and plan.blocks == t * (t + 1) // 2
     tiles = [plan.tiles(b) for b in range(plan.blocks)]

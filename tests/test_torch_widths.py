@@ -139,12 +139,14 @@ def test_fused_scan_matches_reference_kernel_at_any_width(l, cats, m):
 
 
 def test_se_cov_plan_above_the_templated_widths():
-    """Above ``SE_MAX_L`` a Gram matrix runs the general kernel for any
-    width: no Gram blocks."""
+    """Above ``SE_MAX_L`` a Gram matrix runs the Gram kernel for any width:
+    the upper triangle of ``SE_ANY_TILE`` square tiles, a pair a thread."""
     plan = pt_se.se_cov_plan(100, pt_se.SE_MAX_L)
     assert plan.blocks == 4 * 5 // 2 and plan.max_l == pt_se.SE_MAX_L
-    wide = pt_se.se_cov_plan(100, pt_se.SE_MAX_L + 1)
-    assert wide.n_tiles == wide.blocks == 0
+    for l in (pt_se.SE_MAX_L + 1, 12, 40):
+        wide = pt_se.se_cov_plan(100, l)
+        assert wide.tile == wide.rows == pt_se.SE_ANY_TILE == 8
+        assert wide.n_tiles == 13 and wide.blocks == 13 * 14 // 2
 
 
 REL_KW = dict(seed=12, n_rows=20_000, n_num=9, cat_sizes=(4,), n_measures=9)

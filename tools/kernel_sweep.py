@@ -4,7 +4,7 @@ masked-partials (K4), GP-improve (K2), SE-covariance Gram (K3) and
 range-mask aggregation (K5) kernels.
 
     python3 tools/kernel_sweep.py [k1] [k1any] [k4] [k2] [k3] [k5]
-        [--baseline REV_OR_DIR]
+        [k1global] [k3any] [--baseline REV_OR_DIR]
 
 Needs one NVIDIA H100 and nvcc. Each variant is the checked-in source with
 some constants or lines replaced, built into its own library under
@@ -17,16 +17,23 @@ float64 and float32, K3's Gram forward at n = 2000, l = 3 in float64, with
 and without derivatives, K1's kernel for any width at T = 60,000, Q = 128
 on a block of a 9-dimension, 9-measure relation (chip_smoke.py's phase 4
 relation; two launches, over 8 measures and 1), K5 at T = 60,013, Q = 128
-and P in {5, 35} on a TPC-H-like block. For each it prints the CUDA-event
+and P in {5, 35} on a TPC-H-like block, K1's path 3 (category sets past a
+block's shared memory) at T = 60,000, Q = 128 with a dim of 30,000 values
+and at T = 3,000 with one of 100,000, K3's kernels for any l at l = 12
+and 9 (general 128 x 2000, Gram 2000 x 2000 with and without
+derivatives, the reduction). For each it prints the CUDA-event
 time (median of 20 samples of 10 back-to-back calls), the profiler's device
 time per kernel, and whether the output is bitwise the checked-in source's.
 With no kernel named every kernel is swept.
 
-``--baseline`` names an earlier version of the K1 and K5 sources, as a git
-revision of this checkout or a directory holding ``fused_masked_scan.cu``
-and ``range_mask_agg.cu``: the k1any and k5 sweeps then also check once that
-the checked-in kernels give that version's bits (its K5 launched as its
-wrapper did, over groups of at most 17 columns).
+``--baseline`` names an earlier version of the K1, K3 and K5 sources, as a
+git revision of this checkout or a directory holding
+``fused_masked_scan.cu``, ``se_covariance.cu`` and ``range_mask_agg.cu``:
+the k1any, k1global, k3any and k5 sweeps then also check once that the
+checked-in kernels give that version's bits and time it (its K5 launched
+as its wrapper did, over groups of at most 17 columns; its K3 forwards
+with derivatives given the (l, n_i, n_j) scratch they took, whose peak
+memory k3any reports).
 """
 from __future__ import annotations
 
@@ -152,6 +159,28 @@ K1ANY_VARIANTS = {
     "the count alone, no measure updates (wrong sums)": {
         re.escape("acc_s[j] = __fma_rn(w, mv.x, acc_s[j]);"): ";",
         re.escape("acc_q[j] = __fma_rn(w, mv.y, acc_q[j]);"): ";"},
+}
+K1GLOBAL_VARIANTS = {
+    "checked-in (a tile of 32 snippets and 8 chunks a block, slices of 1536 "
+    "category words)": {},
+    "4 chunks a block": {r"FMS_G_WARPS = 8;": "FMS_G_WARPS = 4;"},
+    "slices of 512 words": {r"FMS_G_SLICE = 1536;": "FMS_G_SLICE = 512;"},
+    "no category passes (wrong sums)": {
+        re.escape("for (int k = 0; k < C; ++k) {\n      int mx = -1;"):
+            "for (int k = 0; k < 0; ++k) {\n      int mx = -1;"},
+    "no range passes (wrong sums)": {
+        re.escape("for (int k = 0; k < L; ++k) {\n      const double lo_k"):
+            "for (int k = 0; k < 0; ++k) {\n      const double lo_k"},
+}
+K3ANY_VARIANTS = {
+    "checked-in (Gram tiles of 8, a pair a thread; 12 dims staged and 12 "
+    "derivative chains in shared memory a pass; a dim's antiderivatives "
+    "phase by phase)": {},
+    "16 dims a pass": {r"constexpr int AD = 12;": "constexpr int AD = 16;"},
+    "antiderivatives each in turn": {
+        re.escape("antideriv4<T, derivs>(u, z, c1, c2, f, df);"):
+            "for (int i = 0; i < 4; ++i) antideriv<T, derivs>(u[i], z, c1, "
+            "c2, &f[i], &df[i]);"},
 }
 K5_VARIANTS = {
     "checked-in (4 snippet tiles a block, each with its groups' warps on "
@@ -322,7 +351,7 @@ def sweep_k1():
                          meas.data_ptr(), m, s.lo.data_ptr(), s.hi.data_ptr(),
                          s.cat.data_ptr(), t_n, q_n, l, c, v, m, 0, m,
                          fms.FMS_CHUNK_T, RANGE_EPS, scratch.data_ptr(),
-                         out.data_ptr(), stream)
+                         None, out.data_ptr(), stream)
                 if err:
                     raise RuntimeError(f"fms_launch returned {err}")
 
@@ -343,7 +372,8 @@ def sweep_k1():
                 err = fn(x.data_ptr(), codes.data_ptr(), None,
                          meas.data_ptr(), m, s.lo.data_ptr(), s.hi.data_ptr(),
                          s.cat.data_ptr(), t_n, q_n, l, c, v, m, 0, m, chunk,
-                         RANGE_EPS, part.data_ptr(), out.data_ptr(), stream)
+                         RANGE_EPS, part.data_ptr(), None, out.data_ptr(),
+                         stream)
                 if err:
                     raise RuntimeError(f"fms_launch returned {err}")
 
@@ -517,17 +547,28 @@ def k1any_inputs(seed=0, t_n=60_000, q_n=128):
     return blk, interner.fused()[np.arange(q_n)].to("cuda")
 
 
-def k1_call(lib, blk, s, out, scratch, stream):
+def takes_words(text):
+    """Whether a fused_masked_scan.cu's fms_launch takes path 3's category
+    words."""
+    sig = re.search(r'extern "C" int fms_launch\(([^)]*)\)', text)
+    return sig is not None and "uint32_t* words" in sig.group(1)
+
+
+def k1_call(lib, blk, s, out, scratch, stream, words=None, old=False):
     """K1 over every measure of ``blk``, one launch a group of at most 8
-    (the wrapper's groups), through ``lib``'s C entry point."""
+    (the wrapper's groups), through ``lib``'s C entry point; ``words``:
+    path 3's category scratch; ``old``: a library from before that
+    argument. ``blk`` has ``num_normalized``, ``cat`` and
+    ``measures``; ``s`` has ``lo``, ``hi`` and ``cat``."""
     from repro_torch.kernels import RANGE_EPS
     from repro_torch.kernels.fused_masked_scan import ops as fms
 
     fn = lib.fms_launch
-    fn.argtypes = fms._ARGTYPES["fms_launch"]
+    fn.argtypes = fms._ARGTYPES["fms_launch"][:-1 if old else None]
     x, codes, meas = blk.num_normalized, blk.cat, blk.measures
     (t_n, l), c, m = x.shape, codes.shape[1], meas.shape[1]
     q_n, v = s.cat.shape[0], s.cat.shape[2]
+    extra = () if old else (None if words is None else words.data_ptr(),)
 
     def call():
         for first, count in fms.measure_groups(m):
@@ -535,7 +576,7 @@ def k1_call(lib, blk, s, out, scratch, stream):
                      meas.data_ptr() + 8 * first, m, s.lo.data_ptr(),
                      s.hi.data_ptr(), s.cat.data_ptr(), t_n, q_n, l, c, v,
                      count, first, m, fms.FMS_CHUNK_T, RANGE_EPS,
-                     scratch.data_ptr(), out.data_ptr(), stream)
+                     scratch.data_ptr(), *extra, out.data_ptr(), stream)
             if err:
                 raise RuntimeError(f"fms_launch returned {err}")
     return call
@@ -570,14 +611,201 @@ def sweep_k1any(baseline):
     (lib,) = build("fused_masked_scan", {"baseline": {}}, tag="k1base",
                    text=text)
     out = torch.empty_like(ref)
-    k1_call(lib, blk, s, out, scratch, stream)()
+    old = not takes_words(text)
+    k1_call(lib, blk, s, out, scratch, stream, old=old)()
     torch.cuda.synchronize()
     log(f"  K1 any width: bitwise the baseline's ({baseline}): "
         f"{torch.equal(out, ref)}")
     report(f"K1 any width T={t_n} Q={q_n} L=9 M={m}",
            f"baseline ({baseline})", k1_call(lib, blk, s, out, scratch,
-                                              stream), out, ref,
+                                              stream, old=old), out, ref,
            launches=folds)
+
+
+def k1global_inputs(v, t_n=60_000, q_n=128, seed=0):
+    """chip_smoke.py's path-3 shape: the first T tuples of phase 2's block
+    and Q of its snippets with one more categorical dim of ``v`` values
+    (codes uniform, each snippet's set ~70% of them)."""
+    from types import SimpleNamespace
+
+    blk, snips = k1_inputs((q_n,), seed=seed)
+    s = snips[q_n]
+    rng = np.random.default_rng(seed + 26)
+    t_all = blk.measures.shape[0]
+    extra = torch.as_tensor(rng.integers(0, v, (t_all, 1)),
+                            dtype=blk.cat.dtype, device="cuda")
+    q0, c0, v0 = s.cat.shape
+    sets = s.cat.new_zeros((q0, c0 + 1, v))
+    sets[:, :-1, :v0] = s.cat
+    sets[:, -1] = torch.as_tensor(rng.uniform(size=(q0, v)) < 0.7,
+                                  device="cuda")
+    b = SimpleNamespace(
+        num_normalized=blk.num_normalized[:t_n].contiguous(),
+        cat=torch.cat([blk.cat, extra], 1)[:t_n].contiguous(),
+        measures=blk.measures[:t_n].contiguous())
+    return b, SimpleNamespace(lo=s.lo, hi=s.hi, cat=sets)
+
+
+def sweep_k1global(baseline):
+    """K1 path 3 (category sets past a block's shared memory) at
+    chip_smoke.py's shape (T = 60,000, Q = 128, a dim of 30,000 values,
+    M = 2), and on 3,000 tuples with a dim of 100,000 values (words past
+    one block's shared memory): variants, and the baseline's bits."""
+    from repro_torch.kernels.fused_masked_scan import ops as fms
+
+    libs = build("fused_masked_scan", K1GLOBAL_VARIANTS, tag="k1global")
+    text = baseline_source(baseline, "fused_masked_scan")
+    base = (build("fused_masked_scan", {"baseline": {}}, tag="k1gbase",
+                  text=text)[0] if text is not None else None)
+    stream = torch.cuda.current_stream().cuda_stream
+    for v, t_n in ((30_000, 60_000), (100_000, 3_000)):
+        blk, s = k1global_inputs(v, t_n=t_n)
+        (_, l), c = blk.num_normalized.shape, blk.cat.shape[1]
+        q_n, m = s.cat.shape[0], blk.measures.shape[1]
+        plan = fms.fused_scan_plan(t_n, q_n, m, l, c, v)
+        assert plan.path == 3, plan
+        scratch = torch.empty((-(-t_n // 256), q_n, 2 * m + 1),
+                              dtype=torch.float64, device="cuda")
+        words = torch.empty(plan.word_scratch, dtype=torch.int32,
+                            device="cuda")
+        what = f"K1 path 3 T={t_n} Q={q_n} C={c} V={v} M={m}"
+        ref = None
+        for lib, name in zip(libs, K1GLOBAL_VARIANTS):
+            out = torch.empty((q_n, 2 * m + 1), dtype=torch.float64,
+                              device="cuda")
+            call = k1_call(lib, blk, s, out, scratch, stream, words=words)
+            call()
+            torch.cuda.synchronize()
+            ref = out.clone() if ref is None else ref
+            report(what, name, call, out, ref)
+        if base is None:
+            log(f"  {what}: no baseline source ({baseline!r})")
+            continue
+        out = torch.empty_like(ref)
+        old = not takes_words(text)
+        call = k1_call(base, blk, s, out, scratch, stream,
+                       words=None if old else words, old=old)
+        call()
+        torch.cuda.synchronize()
+        log(f"  {what}: bitwise the baseline's ({baseline}): "
+            f"{torch.equal(out, ref)}")
+        report(what, f"baseline ({baseline})", call, out, ref)
+
+
+def k3_entries(lib, old):
+    """(general, Gram, reduction) f64 entry points of ``lib``; ``old``: a
+    library whose forwards take the (l, n_i, n_j) scratch."""
+    D, LL = ctypes.c_double, ctypes.c_longlong
+    general, gram = lib.se_cov_launch_f64, lib.se_cov_gram_launch_f64
+    extra = [P] if old else []
+    general.argtypes = [P] * 7 + [D] + [I] * 3 + [P] * 3 + extra
+    gram.argtypes = [P] * 4 + [D] + [I] * 2 + [P] * 3 + extra
+    red = lib.se_cov_reduce_launch_f64
+    red.argtypes = [P, P, LL, I, P, P, P]
+    return general, gram, red
+
+
+def sweep_k3any(baseline):
+    """K3's kernels for any l at l = 12 and 9: the general forward at
+    improve's 128 x 2000, the Gram forward at 2000 x 2000 with and without
+    derivatives, the reduction of 2000 x 2000 derivatives; variants, the
+    baseline's bits and its peak memory (its (l, n, n) scratch)."""
+    libs = build("se_covariance", K3ANY_VARIANTS, tag="k3any")
+    text = baseline_source(baseline, "se_covariance")
+    base = (build("se_covariance", {"baseline": {}}, tag="k3base",
+                  text=text)[0] if text is not None else None)
+    old = text is not None and "double* gs" in text
+    stream = torch.cuda.current_stream().cuda_stream
+    f64 = dict(dtype=torch.float64, device="cuda")
+    n, ni, sigma2 = 2000, 128, 1.7
+    for l in (12, 9):
+        rng = np.random.default_rng(23 + l)
+
+        def ranges(k):
+            lo = rng.uniform(0.0, 0.6, (k, l))
+            return (torch.as_tensor(lo, **f64),
+                    torch.as_tensor(lo + rng.uniform(0.05, 0.45, (k, l)),
+                                    **f64))
+        lo_i, hi_i = ranges(ni)
+        lo, hi = ranges(n)
+        ls = torch.as_tensor(rng.uniform(0.3, 1.5, l), **f64)
+        nrm_i = torch.as_tensor(rng.uniform(0.5, 2.0, ni), **f64)
+        nrm = torch.as_tensor(rng.uniform(0.5, 2.0, n), **f64)
+        g_out = torch.as_tensor(rng.normal(size=(n, n)), **f64)
+        part = torch.empty((-(-n * n // 2048), l), **f64)
+        outs = {}
+
+        def calls(lib, is_old):
+            general, gram, red = k3_entries(lib, is_old)
+            o_g = torch.empty((ni, n), **f64)
+            o_n = torch.empty((n, n), **f64)
+            o_d = torch.empty((n, n), **f64)
+            d = torch.empty((l, n, n), **f64)
+            gs = [torch.empty((l, n, n), **f64).data_ptr()] if is_old else []
+            gs_g = [None] if is_old else []
+            grad = torch.empty(l, **f64)
+
+            def c_general():
+                assert not general(
+                    lo_i.data_ptr(), hi_i.data_ptr(), lo.data_ptr(),
+                    hi.data_ptr(), ls.data_ptr(), nrm_i.data_ptr(),
+                    nrm.data_ptr(), sigma2, ni, n, l, o_g.data_ptr(), None,
+                    *gs_g, stream)
+
+            def c_gram():
+                assert not gram(lo.data_ptr(), hi.data_ptr(), ls.data_ptr(),
+                                nrm.data_ptr(), sigma2, n, l, o_n.data_ptr(),
+                                None, *gs_g, stream)
+
+            def c_derivs():
+                assert not gram(lo.data_ptr(), hi.data_ptr(), ls.data_ptr(),
+                                nrm.data_ptr(), sigma2, n, l, o_d.data_ptr(),
+                                d.data_ptr(), *gs, stream)
+
+            def c_reduce():
+                assert not red(g_out.data_ptr(), d.data_ptr(), n * n, l,
+                               part.data_ptr(), grad.data_ptr(), stream)
+            return {"general 128x2000": (c_general, o_g),
+                    "Gram 2000x2000": (c_gram, o_n),
+                    "Gram 2000x2000 with derivatives": (c_derivs, d),
+                    "reduction 2000x2000": (c_reduce, grad)}
+
+        named = list(zip(libs, K3ANY_VARIANTS, [False] * len(libs)))
+        if base is not None:
+            named.append((base, f"baseline ({baseline})", old))
+        for lib, name, is_old in named:
+            cs = calls(lib, is_old)
+            cs["Gram 2000x2000 with derivatives"][0]()  # D for the reduction
+            for shape, (call, out) in cs.items():
+                call()
+                torch.cuda.synchronize()
+                outs.setdefault(shape, out.clone())
+                report(f"K3 any l, {shape} l={l} float64", name, call, out,
+                       outs[shape], launches={"se_cov_fold": 1})
+            del cs
+        if base is None:
+            log(f"  K3 any l: no baseline source ({baseline!r})")
+            continue
+        # Peak device memory of a Gram call with derivatives, as each
+        # version's wrapper allocates it (the scratch's: out, D and it).
+        for lib, name, is_old in ((libs[0], "checked-in", False),
+                                  (base, "baseline", old)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _, gram, _ = k3_entries(lib, is_old)
+            o = torch.empty((n, n), **f64)
+            d = torch.empty((l, n, n), **f64)
+            gs = [torch.empty((l, n, n), **f64).data_ptr()] if is_old else []
+            assert not gram(lo.data_ptr(), hi.data_ptr(), ls.data_ptr(),
+                            nrm.data_ptr(), sigma2, n, l, o.data_ptr(),
+                            d.data_ptr(), *gs, stream)
+            torch.cuda.synchronize()
+            log(f"  K3 any l, Gram 2000x2000 with derivatives l={l}, {name}: "
+                f"peak {(torch.cuda.max_memory_allocated() - before) / 1e6:.3f}"
+                " MB allocated for the call")
+            del o, d, gs
 
 
 def k5_call(lib, args, p, out, scratch, stream, group=None):
@@ -663,14 +891,15 @@ def sweep_k5(baseline):
 
 def main():
     sweeps = {"k1": sweep_k1, "k1any": sweep_k1any, "k4": sweep_k4,
-              "k2": sweep_k2, "k3": sweep_k3, "k5": sweep_k5}
+              "k2": sweep_k2, "k3": sweep_k3, "k5": sweep_k5,
+              "k1global": sweep_k1global, "k3any": sweep_k3any}
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernels", nargs="*",
                     help=f"the sweeps to run, of {sorted(sweeps)} (default: "
                          "every one)")
     ap.add_argument("--baseline", default=None,
-                    help="a git revision or a directory of earlier K1 and "
-                         "K5 sources to check the kernels' bits against")
+                    help="a git revision or a directory of earlier K1, K3 "
+                         "and K5 sources to check the kernels' bits against")
     args = ap.parse_args()
     unknown = set(args.kernels) - set(sweeps)
     if unknown:
@@ -683,7 +912,7 @@ def main():
                        text=True, check=True).stdout.strip())
     t0 = time.perf_counter()
     for name in args.kernels or list(sweeps):
-        if name in ("k1any", "k5"):
+        if name in ("k1any", "k5", "k1global", "k3any"):
             sweeps[name](args.baseline)
         else:
             sweeps[name]()
