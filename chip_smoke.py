@@ -38,6 +38,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      ``masked_partials`` kernel once per round, also after
      ``Session.refit()``; then the ``range_mask_agg`` kernel through the
      scan placement over every sample batch, against the fused scan;
+  7. workload intelligence on phase 3's relation: ``connect(rel, cfg,
+     cache=True)`` and cache-free twins on one warm-up; a stream of fresh
+     queries, exact repeats, subsumed ones (a subset or a pin of a cached
+     group-by, a box within the predicate epsilon) and uncacheable ones:
+     every miss bitwise the twin fed the misses, every hit bitwise its
+     cached cells and launching no kernel; q/s and p50 of the cached and a
+     cache-free session on the same stream; the intel payload through a
+     checkpoint; a full-accuracy entry refused after an append; the
+     router's learned "scan" route, bitwise an always-improve twin and
+     identical under both ingest modes;
   4. the slice against its plain path: a CUDA engine and a CPU engine on the
      same 600,000-row data must agree, before and after a short refit of
      both, and again on a 600,000-row relation of 9 numeric dims and 9
@@ -2438,6 +2448,309 @@ def k5_on_the_scan_placement(rel, cfg, seed):
     return counts["range_mask_agg"]
 
 
+# ------------------------------------------------------------------ phase 7
+INTEL_FRESH = 200  # fresh queries of phase 7's stream
+INTEL_REPEATS = 60  # exact repeats of the first of them
+INTEL_WARM = 200  # warm-up queries of each session
+INTEL_ROUTER = 12  # queries of the router's stream under each ingest mode
+INTEL_TARGET = 0.02  # the stream's target_rel_error
+
+
+def _intel_stream(seed, schema, fresh):
+    """Phase 7's stream after ``fresh``: ``(kind, query, source)`` triples.
+    ``source`` is the fresh query whose cached cells a subsumed answer must
+    reproduce. Exact repeats; for each grouped fresh query a subset of its
+    groups and a pin of one group (its grouped dim then dropped); for each
+    other fresh query of the first 40 its numeric box narrowed by half
+    the predicate epsilon; three uncacheable queries."""
+    from repro_torch.aqp import queries as Q
+    from repro_torch.kernels import RANGE_EPS
+
+    rng = np.random.default_rng(seed)
+    out = [("repeat", q, q) for q in fresh[:INTEL_REPEATS]]
+    for q in fresh[:40]:
+        if q.groupby:
+            sub = tuple(int(v) for v in rng.choice(3, 2, replace=False))
+            out.append(("subset", Q.AggQuery(
+                q.aggs, q.predicates + (Q.CatIn(0, sub),), q.groupby), q))
+            pin = int(rng.integers(0, 3))
+            out.append(("pin", Q.AggQuery(
+                q.aggs, q.predicates + (Q.CatEq(0, pin),), ()), q))
+        else:
+            preds = tuple(
+                Q.NumRange(p.dim, p.lo + RANGE_EPS / 2, p.hi - RANGE_EPS / 2)
+                if isinstance(p, Q.NumRange) else p for p in q.predicates)
+            out.append(("narrowed", Q.AggQuery(q.aggs, preds, q.groupby), q))
+    for q in fresh[:3]:
+        out.append(("uncacheable", Q.AggQuery(
+            q.aggs, q.predicates + (Q.TextLike("x%"),), q.groupby), None))
+    return out
+
+
+def _subsumed_cells(kind, source_cells, query):
+    """What a subsumed answer must be: the cached cells filtered to the
+    query's groups and projected onto its group-by (plain code, not the
+    cache's)."""
+    from repro_torch.aqp import queries as Q
+
+    if kind == "narrowed":
+        return source_cells
+    pred = query.predicates[-1]
+    members = ({pred.value} if isinstance(pred, Q.CatEq)
+               else set(pred.values))
+    keep = [c for c in source_cells if c["group"][0] in members]
+    if kind == "pin":
+        return [dict(c, group=()) for c in keep]
+    return keep
+
+
+def _intel_cells(ans):
+    return [(c.group, c.agg, c.kind, c.estimate, c.beta2) for c in ans.cells]
+
+
+def _router_run(rel, cfg, qs, async_ingest):
+    """The router under a budget never met: a session with route
+    switching (a probe every 4 scans, no ladder) against an always-improve
+    twin, both cold. Returns each query's route and answer."""
+    import dataclasses
+
+    from repro_torch.intel import IntelConfig, RouterConfig
+    from repro_torch.verdict import ErrorBudget, connect
+
+    tight = ErrorBudget(target_rel_error=1e-9)
+    c = dataclasses.replace(cfg, async_ingest=async_ingest)
+    s = connect(rel, c, cache=IntelConfig(router=RouterConfig(
+        probe_every=4, learn_ladder=False)))
+    twin = connect(rel, c, cache=IntelConfig(router=RouterConfig(
+        route_switching=False, learn_ladder=False)))
+    routes, answers = [], []
+    for i, q in enumerate(qs):
+        before = dict(s.stats()["intel"]["routes"])
+        a, w = s.execute(q, tight), twin.execute(q, tight)
+        after = s.stats()["intel"]["routes"]
+        routes.append(next(r for r in after if after[r] != before[r]))
+        assert a.served_from is None and w.served_from is None, i
+        assert a.batches_used == w.batches_used == cfg.n_batches, (
+            i, a.batches_used, w.batches_used)
+        assert _intel_cells(a) == _intel_cells(w), (
+            f"router query {i} (route {routes[-1]}) differs from the "
+            "always-improve twin")
+        answers.append(_intel_cells(a))
+    s.drain(), twin.drain()
+    _assert_healthy(s.engine), _assert_healthy(twin.engine)
+    return routes, answers, s.stats()["intel"]["router"]
+
+
+def workload_intelligence(rel, cfg, seed, smi):
+    """Phase 7 on phase 3's relation: the answer cache, subsumption,
+    staleness, the router and the intel checkpoint through ``connect(...,
+    cache=True)`` on the card."""
+    import tempfile
+
+    import torch
+    from repro_torch.aqp.workload import tpch_workload
+    from repro_torch.core.append import estimate_append_stats
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.intel import IntelConfig, QuerySignature
+    from repro_torch.kernels import launch_counts
+    from repro_torch.verdict import ErrorBudget, connect
+
+    log(f"== phase 7: workload intelligence on {rel.device}, "
+        f"{rel.cardinality} rows; card: {smi}")
+    budget = ErrorBudget(target_rel_error=INTEL_TARGET)
+    warm = tpch_workload(seed + 20, rel.schema, INTEL_WARM)
+    fresh = tpch_workload(seed + 21, rel.schema, INTEL_FRESH)
+    s = connect(rel, cfg, cache=True)
+    # The twin is fed the cached session's misses, in order. It carries the
+    # same serve-path router with a cache that holds nothing: the router's
+    # "scan" route answers from the full budget where an always-improving
+    # engine stops early, so only a twin routing alike can match a miss bit
+    # for bit (part 4 holds the router against an always-improve twin).
+    twin = connect(rel, cfg, cache=IntelConfig(capacity=0))
+    plain = connect(rel, cfg)  # no intel plane, fed the whole stream: timing
+    t0 = time.perf_counter()
+    warm_answers = [sess.execute_many(warm) for sess in (s, twin, plain)]
+    for sess in (s, twin, plain):
+        sess.drain()
+    log(f"warm-up: {INTEL_WARM} queries through execute_many in each of "
+        f"three sessions, {time.perf_counter() - t0:.3f} s")
+    assert all(_intel_cells(a) == _intel_cells(b) == _intel_cells(c)
+               for a, b, c in zip(*warm_answers)), "warm-ups differ"
+
+    # 1. The stream: fresh queries, then repeats, subsumed and uncacheable.
+    stream = [("fresh", q, None) for q in fresh] + _intel_stream(
+        seed + 22, rel.schema, fresh)
+    recorded = {}  # fresh query index -> its latest executed answer
+    index = {id(q): i for i, q in enumerate(fresh)}
+    lat = {"cached": [], "plain": [], "hit": [], "miss": []}
+    counts = {"hit": 0, "subsumed": 0, "miss": 0, "uncacheable": 0}
+    for i, (kind, q, source) in enumerate(stream):
+        if kind != "fresh":
+            # Quiesce every session's ingest thread (their covariance
+            # builds launch K3) so the counters can see what a hit
+            # launches; both timed sessions start each such query drained.
+            for sess in (s, twin, plain):
+                sess.drain()
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t = time.perf_counter()
+        a = s.execute(q, budget)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        after = launch_counts()
+        lat["cached"].append(took)
+        t = time.perf_counter()
+        plain.execute(q, budget)
+        torch.cuda.synchronize()
+        lat["plain"].append(time.perf_counter() - t)
+        if a.served_from is None:
+            w = twin.execute(q, budget)
+            assert w.served_from is None, (i, w.served_from)
+            assert (a.batches_used, _intel_cells(a)) == (
+                w.batches_used, _intel_cells(w)), (
+                f"stream query {i} ({kind}): a miss differs from the "
+                "cache-free twin")
+            if kind == "uncacheable":
+                assert QuerySignature.from_query(rel.schema, q) is None
+                counts["uncacheable"] += 1
+            else:
+                counts["miss"] += 1
+            if id(q) in index:
+                recorded[index[id(q)]] = a
+            lat["miss"].append(took)
+            continue
+        assert kind not in ("fresh", "uncacheable"), (i, kind)
+        assert after == before, (
+            f"stream query {i} ({kind}) was served from the cache but "
+            f"launched kernels: {before} -> {after}")
+        lat["hit"].append(took)
+        if a.served_from == "cache:exact":
+            assert kind == "repeat", (i, kind)
+            counts["hit"] += 1
+            want = recorded[index[id(q)]]
+            assert _intel_cells(a) == _intel_cells(want), (
+                f"stream query {i}: an exact hit differs from the recorded "
+                "answer")
+        else:
+            assert a.served_from == "cache:subsumed" and kind != "repeat"
+            counts["subsumed"] += 1
+            # The cached cells are the source's latest executed answer.
+            src = recorded[index[id(source)]]
+            want = _subsumed_cells(kind, [c.to_dict() for c in src.cells], q)
+            assert [(c.group, c.agg, c.kind, c.estimate, c.beta2)
+                    for c in a.cells] == [
+                (tuple(c["group"]), c["agg"], c["kind"], c["estimate"],
+                 c["beta2"]) for c in want], (
+                f"stream query {i} ({kind}): not the filter-and-project of "
+                "the cached cells")
+    for sess in (s, twin, plain):
+        sess.drain()
+        _assert_healthy(sess.engine)
+    st = s.stats()["intel"]
+    assert st["routes"] == {**twin.stats()["intel"]["routes"],
+                            "cache": counts["hit"] + counts["subsumed"]}
+    log(f"stream of {len(stream)} queries: exact hits {counts['hit']}, "
+        f"subsumed {counts['subsumed']}, misses {counts['miss']}, "
+        f"uncacheable {counts['uncacheable']}; every miss bitwise the "
+        "twin fed the misses in order (same routes), every exact hit bitwise "
+        "the recorded answer, every subsumed answer the filter-and-project "
+        "of the cached cells, no kernel launched across a hit")
+    log(f"  intel counters: lookups {st['lookups']}, hits_exact "
+        f"{st['hits_exact']}, hits_subsumed {st['hits_subsumed']}, misses "
+        f"{st['misses']}, stale_served {st['stale_served']}, stale_refused "
+        f"{st['stale_refused']}, budget_refused {st['budget_refused']}, "
+        f"uncacheable {st['uncacheable']}, routes {st['routes']}, learned "
+        f"floors {st['router']['learned_floors']}")
+    assert counts["hit"] > 0 and counts["subsumed"] > 0, counts
+    assert counts["uncacheable"] == 3, counts
+    e2e = {}
+    for name in ("cached", "plain"):
+        ms = np.asarray(lat[name]) * 1e3
+        e2e[name] = {"qps": len(ms) / float(ms.sum() / 1e3),
+                     "p50_ms": float(np.percentile(ms, 50))}
+    for name in ("hit", "miss"):
+        e2e[f"{name}_p50_ms"] = float(np.percentile(
+            np.asarray(lat[name]) * 1e3, 50))
+    log(f"same stream ({len(stream)} queries, host clock around a "
+        f"synchronised call; {smi}): cached session "
+        f"{e2e['cached']['qps']:.2f} q/s, p50 {e2e['cached']['p50_ms']:.3f} "
+        f"ms; cache-free session {e2e['plain']['qps']:.2f} q/s, p50 "
+        f"{e2e['plain']['p50_ms']:.3f} ms; hits alone ({len(lat['hit'])}) "
+        f"p50 {e2e['hit_p50_ms']:.3f} ms, the cached session's misses "
+        f"({len(lat['miss'])}) p50 {e2e['miss_p50_ms']:.3f} ms")
+    del twin, plain
+
+    # 2. Persistence: the intel payload through save_synopses /
+    # load_synopses into a fresh session with a cache. A restore rebuilds
+    # each inverse from Sigma; so that the restored session's misses can be
+    # held bitwise too, the saving session rebuilds first.
+    for _, syn in sorted(s.store.items()):
+        syn.rebuild()
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        s.save(mgr, step=1)
+        restored = connect(rel, cfg, cache=True)
+        restored.load(mgr, step=1)
+    assert restored.stats()["intel"]["entries"] == st["entries"]
+    served = []
+    for i, q in enumerate(fresh[:20]):
+        a, b = s.execute(q, budget), restored.execute(q, budget)
+        assert a.served_from == b.served_from, (i, a.served_from,
+                                                b.served_from)
+        assert (a.batches_used, _intel_cells(a)) == (
+            b.batches_used, _intel_cells(b)), f"restored repeat {i} differs"
+        served.append(a.served_from)
+    restored.drain()
+    log(f"checkpoint with the intel payload ({st['entries']} entries) "
+        f"restored into a fresh session with a cache on {rel.device}: 20 "
+        "repeats served "
+        f"alike ({served.count('cache:exact')} exact hits), bitwise")
+    del restored
+
+    # 3. Staleness: a full-accuracy entry is not served after an append.
+    q = fresh[0]
+    first = s.execute(q)
+    again = s.execute(q)
+    assert first.served_from is None and again.served_from == "cache:exact"
+    gens = {k: s.store.generation(k) for k in s.store.keys()}
+    n_new = rel.cardinality // 5
+    new = rel.take(np.arange(n_new))
+    stats = estimate_append_stats(rel.measures[:500],
+                                  new.measures[:500] + 0.8,
+                                  rel.cardinality, n_new)
+    for _, syn in sorted(s.store.items()):
+        syn.apply_append(stats)
+    moved = {k: s.store.generation(k) - g for k, g in gens.items()}
+    after = s.execute(q)
+    assert all(v == 1 for v in moved.values()), moved
+    assert after.served_from is None, after.served_from
+    s.drain()
+    _assert_healthy(s.engine)
+    log(f"staleness: after apply_append on every synopsis the generations "
+        f"moved by {sorted(set(moved.values()))}; the full-accuracy repeat "
+        f"was executed (stale_refused {s.stats()['intel']['stale_refused']}"
+        ")")
+    del s
+
+    # 4. The router, under each ingest mode, from cold sessions.
+    rqs = tpch_workload(seed + 23, rel.schema, INTEL_ROUTER)
+    runs = {}
+    for mode in (True, False):
+        t0 = time.perf_counter()
+        runs[mode] = _router_run(rel, cfg, rqs, mode)
+        log(f"router, async_ingest={mode}: routes {runs[mode][0]}, learned "
+            f"E[batches] {runs[mode][2]['expected_batches']} in "
+            f"{time.perf_counter() - t0:.3f} s")
+    assert runs[True][:2] == runs[False][:2], (
+        "routes or answers differ between the ingest modes")
+    routes = runs[True][0]
+    assert routes[0] == "improve" and "scan" in routes, routes
+    log(f"router: {routes.count('scan')} of {len(routes)} queries routed "
+        "scan, every answer bitwise the always-improve twin's, identical "
+        "under async_ingest=True and False")
+    return {**e2e, **counts}
+
+
 # ------------------------------------------------------------------ phase 4
 def _decisions(a, b, i, cfg, target, d):
     """Compare the decisions of query ``i`` in two engines, each read from
@@ -2770,6 +3083,7 @@ def main():
     del eng
     mesh_counts, e2e5 = facade_and_mesh(rel, cfg, args.seed)
     k5_launches = k5_on_the_scan_placement(rel, cfg, args.seed)
+    e2e7 = workload_intelligence(rel, cfg, args.seed, smi)
     del rel
     worst = against_plain(args.seed)
     worst_wide, wide_counts, k3_shapes = against_plain_wide(args.seed)
@@ -2871,7 +3185,7 @@ def main():
         "4's wide CUDA engine, its serving and its refit (Gram launches "
         "without derivatives: all Gram launches less those with)")
     log(f"end to end: phase 3 {json.dumps(e2e)}; phase 6 {json.dumps(e2e6)}; "
-        f"phase 5 {json.dumps(e2e5)};"
+        f"phase 5 {json.dumps(e2e5)}; phase 7 {json.dumps(e2e7)};"
         f" CUDA vs CPU {json.dumps(worst)}; wide CUDA vs CPU "
         f"{json.dumps(worst_wide)};"
         f" total {time.perf_counter() - t_start:.1f} s")

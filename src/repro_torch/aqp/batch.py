@@ -15,6 +15,9 @@ whole workload into one scan. The machinery lives in the shared plan IR
 3. ``replay_query`` replays queries in submission order against cumulative
    per-batch partials: improve, early-stop per query, record — the same
    state transitions, in the same order, as query-at-a-time execution.
+
+With a workload-intelligence plane attached (``engine.intel``), queries the
+answer cache serves drop out before step 1.
 """
 from __future__ import annotations
 
@@ -58,25 +61,49 @@ class BatchExecutor:
         max_batches: Optional[int] = None,
         stop_delta: Optional[float] = None,
         deadline_s: Optional[float] = None,
+        tenant: Optional[str] = None,
     ) -> List[QueryResult]:
         """``deadline_s``: per-query wall-clock budget, measured from each
         query's replay start. On expiry the best-so-far answer returns,
-        ``degraded`` with a ``"deadline"`` reason — every query resolves."""
+        ``degraded`` with a ``"deadline"`` reason — every query resolves.
+        ``tenant``: optional label counted in the workload-intel plane's
+        per-tenant lookup/hit counters."""
         eng = self.engine
         max_batches = min(
             max_batches or eng.batches.n_batches, eng.batches.n_batches
         )
-        wp = plan_workload(eng, queries)
+        results: List[Optional[QueryResult]] = [None] * len(queries)
+        # Workload-intelligence pre-screen (repro_torch.intel): queries
+        # served from the answer cache drop out BEFORE planning — no probe,
+        # no scan, no improve, no record, no kernel launch. Misses flow
+        # through the unchanged lifecycle: bitwise an engine with the same
+        # router and no cache.
+        intel = getattr(eng, "intel", None)
+        live_idx = list(range(len(queries)))
+        if intel is not None:
+            live_idx = []
+            for i, q in enumerate(queries):
+                served = intel.lookup(
+                    eng, q, target_rel_error=target_rel_error,
+                    stop_delta=stop_delta, max_batches=max_batches,
+                    tenant=tenant)
+                if served is not None:
+                    results[i] = served
+                else:
+                    live_idx.append(i)
+        if not live_idx:  # every query was served from the cache
+            self.stats = BatchStats()
+            return results
+        wp = plan_workload(eng, [queries[i] for i in live_idx])
         self.stats = wp.stats
         phys_main = PhysicalPlan(eng.batches, wp.fused, self._eval,
                                  stats=wp.stats)
         phys_raw = PhysicalPlan(eng.batches, wp.fused_raw, plain_eval,
                                 stats=wp.stats)
-        results: List[Optional[QueryResult]] = [None] * len(queries)
         for lp in wp.logical:
             deadline = (None if deadline_s is None
                         else time.monotonic() + float(deadline_s))
-            results[lp.index] = replay_query(
+            results[live_idx[lp.index]] = replay_query(
                 eng, lp, phys_main if lp.supported else phys_raw,
                 target_rel_error=target_rel_error, max_batches=max_batches,
                 stop_delta=stop_delta, deadline=deadline,

@@ -55,6 +55,11 @@ class QueryResult:
     synopsis left its groups on the raw sample estimate (``{state_key:
     reason}``), or a deadline returned the best-so-far answer
     (``"deadline"``). Either way the (estimate, CI) pair is valid.
+
+    ``served_from``: None for executed answers; ``"cache:exact"`` /
+    ``"cache:subsumed"`` when the workload-intelligence plane
+    (``repro_torch.intel``) served this answer from its answer cache without
+    scanning.
     """
 
     cells: List[dict]
@@ -67,6 +72,7 @@ class QueryResult:
     truncated_groups: int = 0
     degraded: bool = False
     degraded_reasons: Dict[str, str] = dataclasses.field(default_factory=dict)
+    served_from: Optional[str] = None
 
     def max_rel_error(self, delta: float = 0.95) -> float:
         alpha = float(confidence_multiplier(delta))
@@ -306,8 +312,21 @@ def replay_rounds(
         yield QueryResult([], 0, 0, True, plan=None), True
         return
     card = engine.batches.source_cardinality
+    # Serve-path routing (repro_torch.intel): under a target the router may
+    # pick "scan" — skip the per-round improve/validate checks and evaluate
+    # the full budget in one final round — when the learned E[batches] says
+    # the improve path was not going to stop early anyway. Without an intel
+    # plane the route is always "improve" under a target.
+    intel = getattr(engine, "intel", None)
+    route = "scan"
+    if target_rel_error is not None:
+        route = "improve"
+        if (intel is not None and lp.supported and not every_batch
+                and deadline is None):
+            route = intel.choose_route(engine, lp, target_rel_error,
+                                       max_batches)
     all_rounds = (every_batch or deadline is not None
-                  or target_rel_error is not None)
+                  or (target_rel_error is not None and route == "improve"))
     if not lp.supported:
         # Raw AQP answers over the full budget, no learning (paper §2.2).
         rounds = (range(max_batches) if every_batch or deadline is not None
@@ -363,8 +382,15 @@ def replay_rounds(
             res.degraded_reasons["deadline"] = (
                 f"deadline expired after {used} of {max_batches} batches"
             )
-        if final and cfg.learning:
-            engine.store.record(lp.plan.snippets, raw)
+        if final:
+            if cfg.learning:
+                engine.store.record(lp.plan.snippets, raw)
+            if intel is not None:
+                # After record: Synopsis.add bumps its generation at enqueue
+                # time, so the cached entry's generation snapshot includes
+                # this answer's own ingest — an exact repeat is fresh.
+                intel.observe(engine, lp, res, target_rel_error,
+                              max_batches, route)
         yield res, final
         if final:
             return

@@ -33,6 +33,12 @@ Lifecycle beyond serving: ``refit`` (offline learning, Appendix A),
 ``repro_torch.ft.checkpoint.CheckpointManager`` (the reference's format:
 either package's checkpoint loads in the other), and ``heal``.
 
+``intel=``: an optional workload-intelligence plane
+(``repro_torch.intel.WorkloadIntel``: answer cache, serve-path router,
+telemetry), which ``repro_torch.verdict.connect(cache=...)`` attaches. A hit
+is served on the host before the scan and launches no kernel; misses run the
+lifecycle above unchanged. Its state rides in the checkpoint payload.
+
 ``learning=False`` turns the engine into the NoLearn baseline of §8.1.
 """
 from __future__ import annotations
@@ -93,6 +99,7 @@ class VerdictEngine:
         device=None,
         store=None,
         scan: Optional[ScanPlacement] = None,
+        intel=None,
     ):
         self.device = resolve_device(device)
         if relation.device != self.device:
@@ -102,6 +109,12 @@ class VerdictEngine:
         self.relation = relation
         self.schema: Schema = relation.schema
         self.config = config or EngineConfig()
+        # Optional workload-intelligence plane
+        # (``repro_torch.intel.WorkloadIntel``): answer cache + serve-path
+        # router. None (the default) keeps every path bit for bit the
+        # engine without one; the plan lifecycle and the batch executor
+        # consult it through ``getattr``, so the core never imports it.
+        self.intel = intel
         # The scan plane's placement seam: every block evaluation routes
         # through it, as all learned state routes through ``store``.
         self.scan: ScanPlacement = scan or ScanPlacement()
@@ -249,22 +262,28 @@ class VerdictEngine:
         """Restore a store snapshot — this package's or the JAX reference's
         ``synopses_state_dict()`` as it is. Σ⁻¹ and α are rebuilt on this
         engine's device, and each key is placed by this engine's store, so
-        a snapshot re-places onto any mesh. A reference ``"intel"`` payload
-        (answer cache and router state) is ignored with a warning: this
-        package has no workload-intelligence plane yet."""
+        a snapshot re-places onto any mesh.
+
+        A reserved ``"intel"`` payload (present when the saving engine, of
+        either package, had a workload-intelligence plane) restores the
+        answer cache and the learned router state when this engine has one
+        too — AFTER the store, so cache-entry generations re-license against
+        the restored synopses; without one it is left out."""
         state = dict(state)
-        if state.pop("intel", None) is not None:
-            warnings.warn(
-                "ignoring the snapshot's 'intel' payload: this engine has no "
-                "answer cache or router to restore it into",
-                RuntimeWarning, stacklevel=2)
+        intel_state = state.pop("intel", None)
         self.store.load_state_dict(state)
+        if self.intel is not None and intel_state is not None:
+            self.intel.load_state_dict(intel_state, self.store)
 
     def save_synopses(self, manager, step: int):
-        """Checkpoint the learned synopses through a ``CheckpointManager``:
+        """Checkpoint the learned synopses (plus, with a workload-
+        intelligence plane attached, its answer cache and router state
+        under the reserved ``"intel"`` key) through a ``CheckpointManager``:
         one payload, one CRC-verified commit, in the reference's format."""
-        manager.save(step, self.store.state_dict(),
-                     extra={"kind": "verdict-synopses"})
+        payload = self.store.state_dict()
+        if self.intel is not None:
+            payload["intel"] = self.intel.state_dict(self.store)
+        manager.save(step, payload, extra={"kind": "verdict-synopses"})
 
     def load_synopses(self, manager, step: Optional[int] = None):
         """Restore synopses from a ``CheckpointManager`` checkpoint (this
@@ -273,9 +292,9 @@ class VerdictEngine:
 
         This is what makes the engine smarter across process restarts: a new
         process pays zero queries to recover everything past sessions
-        learned, re-placed onto whatever devices this engine's store spans.
-        A checkpoint's ``"intel"`` payload is ignored with a warning
-        (``load_synopses_state_dict``).
+        learned, re-placed onto whatever devices this engine's store spans,
+        and (when both sides carry a workload-intelligence plane) the answer
+        cache and router state.
         """
         state, extra = manager.restore_blind(step)
         self.load_synopses_state_dict(state)
@@ -295,7 +314,8 @@ class VerdictEngine:
         Every sample batch is scanned exactly once for the whole workload
         (identical snippets deduped across queries). ``stop_delta``
         overrides the confidence level of the early-stop check;
-        ``deadline_s`` bounds each query's wall clock.
+        ``deadline_s`` bounds each query's wall clock. With ``intel``
+        attached, cache hits are served before the scan.
         """
         from repro_torch.aqp.batch import BatchExecutor
 

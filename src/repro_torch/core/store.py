@@ -117,6 +117,12 @@ class SynopsisStore:
     def get(self, key: AggKey) -> Optional[Synopsis]:
         return self._synopses.get(key)
 
+    def generation(self, key: AggKey) -> int:
+        """Monotone state generation of ``key``'s synopsis (0 if absent):
+        the answer cache's staleness primitive (``repro_torch.intel``)."""
+        syn = self._synopses.get(key)
+        return syn.generation if syn is not None else 0
+
     def __len__(self) -> int:
         return len(self._synopses)
 

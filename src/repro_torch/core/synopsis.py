@@ -299,6 +299,13 @@ class Synopsis:
         self._shed_count = 0
         self._restored_high_water = 0
         self._qlock = threading.Lock()
+        # Monotone state generation for the answer cache
+        # (``repro_torch.intel``): bumped on the caller's thread at every
+        # serving-visible transition — add (at enqueue, so the bump never
+        # waits for async ingest), quarantine, heal, refit, append and state
+        # restore. A cached answer records the generations it was computed
+        # under; any mismatch marks it stale.
+        self.generation = 0
         self._quarantine_exc: Optional[BaseException] = None
         self._unapplied: list = []  # parked (FIFO) batches awaiting heal()
         self._quarantine_count = 0  # quarantine episodes over this lifetime
@@ -313,6 +320,11 @@ class Synopsis:
         self._beta2 = np.ones((C,))
         self._stamp = np.full((C,), -1, np.int64)
         self.n = 0
+        # ``n`` as it will stand once every queued add has applied, kept at
+        # enqueue time (``queued_fill``), and the keys it counts while the
+        # store is below capacity (none can be evicted before that).
+        self._queued_n = 0
+        self._queued_keys: Optional[set] = set()
         self._clock = 0
         self._keys: dict = {}
         self.params = (params.to(self.device) if params is not None
@@ -372,6 +384,7 @@ class Synopsis:
             np.array(to_numpy(theta), dtype=np.float64),
             np.array(to_numpy(beta2), dtype=np.float64),
         )
+        self._enqueued(item)
         if not self.async_ingest:
             self._guarded_apply(*item)
             return
@@ -382,6 +395,41 @@ class Synopsis:
             self._shed_count += 1
             self._ingest.drain()  # preserve FIFO before applying inline
             self._guarded_apply(*item)
+
+    def _enqueued(self, item):
+        """Enqueue bookkeeping, on the caller's thread under the lock the
+        ingest thread's quarantine takes: bump the generation (an answer
+        cached right after this add records the post-ingest generation,
+        whatever the ingest thread has done), and advance ``queued_fill``
+        by what ``_apply_add`` will do with ``item``: each distinct finite
+        key not yet stored takes a row, up to capacity (evictions then keep
+        the fill at capacity)."""
+        lo, hi, cat, agg, mea, theta, beta2 = item
+        with self._qlock:
+            self.generation += 1
+            keys = self._queued_keys
+            if keys is None:  # at capacity: nothing changes the fill
+                return
+            for i in range(lo.shape[0]):
+                if np.isfinite(theta[i]) and np.isfinite(beta2[i]):
+                    keys.add(self._key(lo[i], hi[i], cat[i], agg[i], mea[i]))
+            self._queued_n = min(len(keys), self.capacity)
+            if len(keys) >= self.capacity:
+                self._queued_keys = None
+
+    def _sync_queued(self):
+        """Reset ``queued_fill`` to the applied state (nothing queued)."""
+        with self._qlock:
+            self._queued_n = self.n
+            self._queued_keys = (set(self._keys) if self.n < self.capacity
+                                 else None)
+
+    def queued_fill(self) -> int:
+        """The fill once every queued add has applied: what ``n`` reads
+        under ``async_ingest=False``, known without waiting for the ingest
+        thread. A quarantined synopsis counts as empty."""
+        with self._qlock:
+            return 0 if self._quarantine_exc is not None else self._queued_n
 
     def _guarded_apply(self, *item):
         """Apply one batch, quarantining on failure instead of raising."""
@@ -399,6 +447,7 @@ class Synopsis:
             if self._quarantine_exc is None:
                 self._quarantine_exc = exc
                 self._quarantine_count += 1
+                self.generation += 1  # degraded: cached answers go stale
             if item is not None:
                 self._unapplied.append(item)
 
@@ -451,6 +500,8 @@ class Synopsis:
                     self._quarantine_count += 1
                     self._unapplied = parked[i:] + self._unapplied
                 return False
+        self._sync_queued()
+        self.generation += 1  # healed state ≠ the state cached answers saw
         return True
 
     def drain(self):
@@ -655,8 +706,7 @@ class Synopsis:
             batch, self._put(self._theta[rows]), self._put(self._beta2[rows]),
             self.schema, steps=steps, lr=lr, learn_sigma=learn_sigma)
         self.rebuild()
-        # The workload-intelligence slice adds ``self.generation += 1``
-        # here: relearned params change improved answers.
+        self.generation += 1  # relearned params change improved answers
         return self.params
 
     # ------------------------------------------------------------- append (D)
@@ -674,8 +724,7 @@ class Synopsis:
         self._theta[:n] = theta.numpy()
         self._beta2[:n] = beta2.numpy()
         self.rebuild()
-        # The workload-intelligence slice adds ``self.generation += 1``
-        # here: stored answers were rescaled for appended data.
+        self.generation += 1  # stored answers rescaled for appended data
 
     def rebuild(self):
         """Recompute Sigma for the current params, refactor, refresh alpha."""
@@ -814,4 +863,6 @@ class Synopsis:
             for i in range(n)
         }
         self._clock = int(self._stamp[:n].max()) if n else 0
+        self._sync_queued()
         self.rebuild()
+        self.generation += 1  # restored state ≠ whatever answers were cached

@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.utils.stats import confidence_multiplier
+
 AVG = 0
 FREQ = 1
 
@@ -82,6 +84,10 @@ class Schema:
     def normalize(self, dim: int, value):
         lo, hi = self.num_lo[dim], self.num_hi[dim]
         return (value - lo) / max(hi - lo, 1e-300)
+
+    def denormalize(self, dim: int, value):
+        lo, hi = self.num_lo[dim], self.num_hi[dim]
+        return value * (hi - lo) + lo
 
 
 @dataclasses.dataclass
@@ -323,3 +329,10 @@ class ImprovedAnswer:
     raw_theta: torch.Tensor
     raw_beta2: torch.Tensor
     accepted: torch.Tensor
+
+    def error_bound(self, delta: float = 0.95) -> torch.Tensor:
+        """Half-width of the improved answers' ``delta`` confidence interval
+        (alpha_delta * beta), on their device."""
+        from repro_torch.utils.stats import confidence_multiplier
+
+        return confidence_multiplier(delta) * torch.sqrt(self.beta2)

@@ -31,6 +31,12 @@ by either package loads in the other. This package is one process (its
   nested dicts of numpy arrays: store snapshots come back that way and the
   loading store re-places each key by its own policy, so a checkpoint
   written under one mesh shape restores onto any other.
+- A synopsis checkpoint (``VerdictEngine.save_synopses``) holds one
+  ``"agg<k>-measure<m>"`` subtree per synopsis and, when the engine has a
+  workload-intelligence plane, the reserved ``"intel"`` subtree: one
+  ``"intel/blob"`` uint8 array, the canonical JSON of the answer cache,
+  the router and the counters (``repro_torch.intel``), byte for byte the
+  JAX package's layout.
 
 Trees are nested dicts, lists and tuples; ``None`` is an empty subtree;
 every other value is a leaf (a tensor, an array or a number).

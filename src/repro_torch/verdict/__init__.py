@@ -15,6 +15,10 @@
     mesh = vd.Mesh((rel.device,) * 4)          # four shards on one card
     sharded = vd.connect(rel, vd.EngineConfig(sample_rate=0.1), mesh=mesh)
 
+    cached = vd.connect(rel, vd.EngineConfig(sample_rate=0.1), cache=True)
+    cached.execute(q).served_from              # None: executed
+    cached.execute(q).served_from              # "cache:exact": no scan
+
 See ``repro_torch.verdict.session`` for the Session surface.
 """
 from repro_torch.aqp.executor import Mesh
@@ -24,6 +28,7 @@ from repro_torch.core.store import (
     ShardedSynopsisStore,
     SynopsisStore,
 )
+from repro_torch.intel import IntelConfig, WorkloadIntel
 from repro_torch.verdict.answer import Cell, FailedAnswer, PlanReport, QueryAnswer
 from repro_torch.verdict.query import (
     QueryBuilder,
@@ -40,6 +45,7 @@ __all__ = [
     "EngineConfig",
     "ErrorBudget",
     "FailedAnswer",
+    "IntelConfig",
     "LocalSynopsisStore",
     "Mesh",
     "PlanReport",
@@ -48,6 +54,7 @@ __all__ = [
     "Session",
     "ShardedSynopsisStore",
     "SynopsisStore",
+    "WorkloadIntel",
     "any_of",
     "between",
     "connect",

@@ -76,6 +76,9 @@ class QueryAnswer:
     the best-so-far answer with its wider CI. Reasons are
     ``{state_key | "deadline": description}``.
 
+    ``served_from``: ``"cache:exact"``/``"cache:subsumed"`` when the
+    workload-intelligence plane answered without scanning
+    (``repro_torch.intel``); None for every executed answer.
     """
 
     cells: Tuple[Cell, ...]
@@ -87,6 +90,7 @@ class QueryAnswer:
     final: bool = True
     degraded: bool = False
     degraded_reasons: dict = dataclasses.field(default_factory=dict)
+    served_from: Optional[str] = None
 
     @property
     def failed(self) -> bool:
@@ -107,6 +111,7 @@ class QueryAnswer:
             final=final,
             degraded=bool(getattr(result, "degraded", False)),
             degraded_reasons=dict(getattr(result, "degraded_reasons", {})),
+            served_from=getattr(result, "served_from", None),
         )
 
     def max_rel_error(self, delta: float = 0.95) -> float:
@@ -189,6 +194,12 @@ class PlanReport:
     # synopsis this query's keys would touch: the query WILL serve, but its
     # affected groups stay on the raw sample estimate until heal().
     quarantined: dict = dataclasses.field(default_factory=dict)
+    # Workload intelligence (None when no intel plane is attached):
+    # ``cache`` is the answer-cache status this query would see RIGHT NOW
+    # ("exact" | "subsumed" | "miss" | "uncacheable"), ``route`` the serve
+    # path the router would pick ("cache" | "improve" | "scan").
+    cache: Optional[str] = None
+    route: Optional[str] = None
 
     def __str__(self) -> str:
         head = ("supported" if self.supported
@@ -201,6 +212,10 @@ class PlanReport:
             f"  snippets={self.n_snippets} unique={self.n_snippets_unique}"
             f" dedup={self.dedup_ratio:.2f}x",
         ]
+        if self.cache is not None:
+            lines.append(
+                f"  served from cache: {self.cache} → route={self.route}"
+            )
         for key in sorted(self.q_buckets):
             where = self.placement.get(key, "local")
             lines.append(

@@ -17,8 +17,11 @@ bitwise those of the local session) and the learned state (a
 ``ShardedSynopsisStore``). The mesh's first device must be the relation's:
 that is where masks are gathered and answers assembled.
 ``Session.stats()`` surfaces the scan placement, shard occupancy and
-ingest back-pressure. ``refit`` relearns the GP parameters offline;
-``save`` / ``load`` checkpoint the learned synopses through a
+ingest back-pressure. ``connect(cache=...)`` attaches the
+workload-intelligence plane (``repro_torch.intel``): an answer cache served
+before the scan, a learned serve-path router, and their counters.
+``refit`` relearns the GP parameters offline; ``save`` / ``load``
+checkpoint the learned synopses (and the intel plane's state) through a
 ``CheckpointManager``, and ``heal(manager)`` restores quarantined keys from
 one.
 """
@@ -47,6 +50,7 @@ from repro_torch.core.store import (
 )
 from repro_torch.core.types import bucket_size
 from repro_torch.ft import faults
+from repro_torch.intel import IntelConfig, WorkloadIntel
 from repro_torch.verdict.answer import PlanReport, QueryAnswer
 from repro_torch.verdict.query import QueryBuilder
 
@@ -76,7 +80,7 @@ class ErrorBudget:
 
 def connect(relation: Relation,
             config: Optional[EngineConfig] = None,
-            mesh: Optional[Mesh] = None,
+            mesh: Optional[Mesh] = None, cache=None,
             tenant: Optional[str] = None) -> "Session":
     """Open a Session over a relation (the driver-level entry point).
 
@@ -84,10 +88,18 @@ def connect(relation: Relation,
     fused scan then runs through a ``ShardedScanPlacement`` over its
     devices, and the learned state is placed per aggregate key by a
     ``ShardedSynopsisStore`` over the same devices. Without a mesh both stay
-    on the relation's device. ``tenant``: optional label, surfaced in
-    ``stats()``.
+    on the relation's device.
+
+    ``cache``: opt-in workload intelligence (``repro_torch.intel``) — the
+    answer cache + learned serve-path router. ``True`` attaches a default
+    ``WorkloadIntel``; an ``IntelConfig`` or a pre-built ``WorkloadIntel``
+    customizes it; ``None``/``False`` (default) keeps every path bit for bit
+    the engine without one.
+
+    ``tenant``: optional label, surfaced in ``stats()`` and counted in the
+    workload-intel per-tenant counters.
     """
-    return Session(relation, config, mesh=mesh, tenant=tenant)
+    return Session(relation, config, mesh=mesh, cache=cache, tenant=tenant)
 
 
 class Session:
@@ -99,12 +111,13 @@ class Session:
 
     def __init__(self, relation: Relation,
                  config: Optional[EngineConfig] = None,
-                 mesh: Optional[Mesh] = None,
+                 mesh: Optional[Mesh] = None, cache=None,
                  tenant: Optional[str] = None, _engine=None):
         self.tenant = tenant
         if _engine is not None:
             # Attach mode (Session.attached): wrap an EXISTING engine —
-            # shared store, own executor stats and tenant label.
+            # shared store and intel plane, own executor stats and tenant
+            # label.
             self.engine = _engine
             self._executor = BatchExecutor(self.engine)
             return
@@ -117,8 +130,17 @@ class Session:
                     "on the relation's device")
             store = (lambda schema, cfg:
                      ShardedSynopsisStore(schema, cfg, mesh=mesh))
+        intel = None
+        if cache:  # True | IntelConfig | WorkloadIntel (None/False: off)
+            if isinstance(cache, WorkloadIntel):
+                intel = cache
+            elif isinstance(cache, IntelConfig):
+                intel = WorkloadIntel(cache)
+            else:
+                intel = WorkloadIntel()
         self.engine = VerdictEngine(relation, config, device=relation.device,
-                                    store=store, scan=scan_placement(mesh))
+                                    store=store, scan=scan_placement(mesh),
+                                    intel=intel)
         # The executor scans through the engine's ScanPlacement, so
         # execute, execute_many and stream all go through the same seam.
         self._executor = BatchExecutor(self.engine)
@@ -151,6 +173,12 @@ class Session:
         """Fusion accounting of the most recent execute/execute_many call."""
         return self._executor.stats
 
+    @property
+    def intel(self) -> Optional[WorkloadIntel]:
+        """The workload-intelligence plane (``connect(cache=...)``), or
+        None when the session runs without one."""
+        return self.engine.intel
+
     # --------------------------------------------------------------- queries
     def query(self) -> QueryBuilder:
         """Start a typed query: ``session.query().avg("v0").where(...)``."""
@@ -176,6 +204,7 @@ class Session:
             max_batches=budget.max_batches,
             stop_delta=budget.delta,
             deadline_s=budget.deadline_s,
+            tenant=self.tenant,
         )
         return [QueryAnswer.from_result(r) for r in results]
 
@@ -186,17 +215,30 @@ class Session:
 
         Reports, per aggregate-function key, the predicted serve tiles and
         the store's shard assignment — for keys that do not exist yet, where
-        the state *would* be placed (a pure function of the key). ``budget``
-        is accepted for symmetry with ``execute``; no plan field reads it.
+        the state *would* be placed (a pure function of the key). With
+        workload intelligence attached (``connect(cache=...)``), also
+        reports the answer-cache status (exact/subsumed/miss/uncacheable)
+        and the route the serve router would pick under ``budget`` —
+        read-only: explaining never moves LRU state, counters or probe
+        streaks.
         """
         eng = self.engine
+        budget = budget or ErrorBudget()
         scan = eng.scan.describe()
         evaluator = eng.scan.evaluator_for(eng._eval_fn, eng.device)
         wp = plan_workload(eng, [self._lower(q)])
         lp = wp.logical[0]
+        cache_status, route = None, None
+        if eng.intel is not None:
+            cache_status, route = eng.intel.peek(
+                eng, self._lower(q),
+                target_rel_error=budget.target_rel_error,
+                stop_delta=budget.delta,
+                max_batches=budget.max_batches, lp=lp)
         if lp.plan is None:
             return PlanReport(True, None, 0, 0, 0, 0, 0, 1.0, {}, {}, {},
-                              scan_placement=scan, scan_evaluator=evaluator)
+                              scan_placement=scan, scan_evaluator=evaluator,
+                              cache=cache_status, route=route)
         q_buckets, fill_buckets, placement, quarantined = {}, {}, {}, {}
         for key, rows in group_rows(lp.plan.snippets):
             q_buckets[key] = bucket_size(len(rows), eng.config.min_q_bucket)
@@ -220,6 +262,8 @@ class Session:
             scan_placement=scan,
             scan_evaluator=evaluator,
             quarantined=quarantined,
+            cache=cache_status,
+            route=route,
         )
 
     # ---------------------------------------------------------------- stream
@@ -232,10 +276,21 @@ class Session:
         estimates after batches ``0..b``; the last one (``final=True``) is
         what ``execute`` under the same budget returns, and only its raw
         answers are recorded into the synopsis. This is ``replay_rounds``,
-        the generator ``execute`` consumes, surfaced round by round.
+        the generator ``execute`` consumes, surfaced round by round. A cache
+        hit collapses the stream to its one final answer.
         """
         eng = self.engine
         budget = budget or ErrorBudget()
+        if eng.intel is not None:
+            served = eng.intel.lookup(
+                eng, self._lower(q),
+                target_rel_error=budget.target_rel_error,
+                stop_delta=budget.delta, max_batches=budget.max_batches,
+                tenant=self.tenant)
+            if served is not None:
+                # What execute() under the same budget returns.
+                yield QueryAnswer.from_result(served, final=True)
+                return
         wp = plan_workload(eng, [self._lower(q)])
         lp = wp.logical[0]
         phys = PhysicalPlan(
@@ -279,7 +334,9 @@ class Session:
         padding the mesh needed). ``workload``: fusion accounting of the
         most recent execute/execute_many call. ``health``: quarantined
         synopses (``{state_key: reason}``) and the active fault plan's
-        counters. ``tenant``: this session's label.
+        counters. ``intel``: the workload-intelligence plane's
+        hit/miss/subsumption/staleness/route counters (``{"enabled": False}``
+        without one). ``tenant``: this session's label.
         """
         return {
             "tenant": self.tenant,
@@ -290,6 +347,9 @@ class Session:
                 "quarantined": self.engine.store.quarantined(),
                 "faults": faults.stats(),
             },
+            "intel": (self.engine.intel.stats()
+                      if self.engine.intel is not None
+                      else {"enabled": False}),
         }
 
     def heal(self, manager=None, step: Optional[int] = None) -> dict:

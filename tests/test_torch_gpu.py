@@ -34,7 +34,13 @@ Inputs are made from a seed with numpy. Tolerances:
     bitwise even; the Gram plan of the built library equal to the
     wrapper's; a refit on the card runs the Gram forward with derivatives
     and the reduction on every step, and no forward writes derivatives
-    when ``ls`` needs no gradient.
+    when ``ls`` needs no gradient;
+  - workload intelligence on the card: a cache hit moves no launch
+    counter and gives the recorded answer bitwise; misses are bitwise a
+    cache-free session fed the same misses; the router takes the same
+    routes, with bitwise the same answers (each an always-improve twin's),
+    under asynchronous and synchronous ingest; the highest fill floor the
+    router's ladder learns leaves improved answers bitwise.
 """
 import numpy as np
 import pytest
@@ -955,3 +961,118 @@ def test_refit_learning_sigma_on_the_card_lowers_every_nll():
                    for t in (params.log_ls, params.log_sigma2, params.mu))
     for k in ("se_cov_gram", "se_cov_derivs", "se_cov_grad"):
         assert after[k] - before[k] >= 20 * fits, (k, before, after)
+
+
+# ----------------------------------------------- workload intelligence
+def _intel_session(cache, seed=5, **cfg):
+    """A session on the card over a small relation, with ``cache``."""
+    import repro_torch.verdict as vd
+    from repro_torch.aqp import workload as pt_w
+
+    rel = pt_w.make_relation(seed=seed, n_rows=6_000, n_num=2,
+                             cat_sizes=(4,), n_measures=1, device="cuda")
+    base = dict(sample_rate=0.2, n_batches=4, capacity=128, seed=0)
+    base.update(cfg)
+    return vd.connect(rel, vd.EngineConfig(**base), cache=cache)
+
+
+def _intel_queries(s, n=6):
+    import repro_torch.verdict as vd
+
+    return [s.query().avg("v0").where(vd.between("x0", 1.0 + 0.5 * i, 9.0))
+            .group_by("c0").build() for i in range(n)]
+
+
+def _bits(ans):
+    return [(c.group, c.estimate, c.beta2) for c in ans.cells]
+
+
+def test_a_cache_hit_launches_no_kernel_on_the_card():
+    """Repeats served from the answer cache move none of the kernels'
+    launch counters and give the recorded answers bitwise."""
+    import repro_torch.verdict as vd
+
+    s = _intel_session(True)
+    budget = vd.ErrorBudget(target_rel_error=0.5)
+    qs = _intel_queries(s)
+    first = s.execute_many(qs, budget)
+    s.drain()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    again = [s.execute(q, budget) for q in qs]
+    torch.cuda.synchronize()
+    assert launch_counts() == before
+    assert [a.served_from for a in again] == ["cache:exact"] * len(qs)
+    assert [_bits(a) for a in again] == [_bits(a) for a in first]
+
+
+def test_cache_misses_are_bitwise_a_cache_free_session_on_the_card():
+    """A session with a cache answers its misses bitwise like a session
+    without one fed the same misses in the same order."""
+    import repro_torch.verdict as vd
+
+    s, twin = _intel_session(True), _intel_session(None)
+    budget = vd.ErrorBudget(target_rel_error=0.5)
+    qs = _intel_queries(s)
+    stream = qs + qs[:2] + [s.query().count().where(
+        vd.between("x1", 2.0, 7.0)).build()]
+    got = [s.execute(q, budget) for q in stream]
+    misses = [q for q, a in zip(stream, got) if a.served_from is None]
+    assert len(misses) == len(qs) + 1
+    want = [twin.execute(q, budget) for q in misses]
+    assert [_bits(a) for a in got if a.served_from is None] == \
+        [_bits(a) for a in want]
+    assert [a.batches_used for a in got if a.served_from is None] == \
+        [a.batches_used for a in want]
+
+
+def test_router_routes_alike_under_both_ingest_modes_on_the_card():
+    """Under a budget never met the router learns to route "scan"; its
+    routes and answers are the same under asynchronous and synchronous
+    ingest, and every answer is bitwise an always-improve twin's."""
+    import repro_torch.verdict as vd
+    from repro_torch.intel import IntelConfig, RouterConfig
+
+    tight = vd.ErrorBudget(target_rel_error=1e-9)
+    runs = {}
+    for mode in (True, False):
+        s = _intel_session(IntelConfig(router=RouterConfig(
+            probe_every=4, learn_ladder=False)), async_ingest=mode)
+        twin = _intel_session(IntelConfig(router=RouterConfig(
+            route_switching=False, learn_ladder=False)), async_ingest=mode)
+        routes, answers = [], []
+        for lo in [1.0 + 0.25 * i for i in range(8)]:
+            q = s.query().avg("v0").where(vd.between("x0", lo, 9.5)).build()
+            before = dict(s.stats()["intel"]["routes"])
+            a, w = s.execute(q, tight), twin.execute(q, tight)
+            after = s.stats()["intel"]["routes"]
+            routes.append(next(r for r in after if after[r] != before[r]))
+            assert _bits(a) == _bits(w) and a.batches_used == 4
+            answers.append(_bits(a))
+        s.drain(), twin.drain()
+        runs[mode] = (routes, answers)
+    assert runs[True] == runs[False]
+    assert runs[True][0][0] == "improve" and "scan" in runs[True][0]
+
+
+def test_a_raised_fill_floor_leaves_improved_answers_bitwise_on_the_card():
+    """The router's ladder raises ``min_fill_bucket`` up to
+    ``RouterConfig.max_ladder_bucket`` (512), padding the improve kernel's
+    C with zero columns. Its depth split is 64 columns for every C up to
+    1024 (``gp_depth_split``), so the padding adds exact zeros and the
+    answers do not move."""
+    import repro_torch.verdict as vd
+    from repro_torch.intel import RouterConfig
+
+    budget = vd.ErrorBudget(target_rel_error=0.5)
+    runs = []
+    for floor in (None, RouterConfig().max_ladder_bucket):
+        s = _intel_session(None, capacity=600)
+        qs = _intel_queries(s, 8)
+        s.execute_many(qs[:4], budget)
+        if floor is not None:
+            for _, syn in s.store.items():
+                syn.min_fill_bucket = floor
+        runs.append([_bits(s.execute(q, budget)) for q in qs[4:]])
+        s.drain()
+    assert runs[0] == runs[1]
