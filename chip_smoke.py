@@ -48,6 +48,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      checkpoint; a full-accuracy entry refused after an append; the
      router's learned "scan" route, bitwise an always-improve twin and
      identical under both ingest modes;
+  8. the microbatching ``AqpService`` (``Session.serve``) on phase 3's
+     relation: 256 queries from 8 threads at once through the auto-flush
+     (every ticket resolved exactly once, every answer bitwise a twin's
+     ``execute_many`` of the same flushes, launches counted, q/s and ticket
+     latency beside the same queries one by one); again with
+     ``ingest_max_pending=2`` (answers and final store bitwise an
+     ``async_ingest=False`` twin, no backlog past 2); a transient and a
+     persistent scan fault; a deadline of 0 s and the answer cache's
+     pre-screen (no launch across a hit); the service over a four-shard
+     mesh, bitwise the local one, through the masked-partials kernel;
   4. the slice against its plain path: a CUDA engine and a CPU engine on the
      same 600,000-row data must agree, before and after a short refit of
      both, and again on a 600,000-row relation of 9 numeric dims and 9
@@ -83,6 +93,14 @@ PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "float64_simt": 34e12}
 # decisions they agreed on; 4 leaves room for the flipped query's own
 # difference to exceed those seen before it.
 FLIP_FACTOR = 4.0
+# Phase 4 holds every cell's 95% half-width (the square root of its beta^2)
+# to this fraction of the other engine's, as it holds COUNT and SUM
+# estimates to a tenth of their half-width. The spread is in the FREQ
+# synopsis' improved variance: gamma^2 = kappa^2 - k Sigma^-1 k^T cancels
+# about seven digits at 600,000 rows (kappa^2 0.5715, gamma^2 5.5e-8;
+# cond(Sigma^-1) 3.8e8), so a last-bit difference of the quadratic form
+# between summation orders moves gamma^2, and the cell's beta^2, by percents.
+HALF_WIDTH_RTOL = 0.1
 K1_REPLACES = "src/repro/kernels/fused_masked_scan/kernel.py:84"
 K2_REPLACES = "src/repro/kernels/gp_batch_infer/kernel.py:27"
 K4_REPLACES = "src/repro/kernels/fused_masked_scan/kernel.py:133"
@@ -470,6 +488,32 @@ def check_k2(seed, dev):
                     f"{n_ops / dev_ms / 1e9:.4f} TFLOP/s (device time); "
                     f"device share of bound "
                     f"{records[(q, name)]['bound_ms'] / dev_ms:.4f}")
+    # A fill of 600 padded (Σ⁻¹ = I, k = 0, α = 0) to its own bucket and
+    # to C = 2000, as a fill floor of 2048 pads it: told the fill, the
+    # kernel covers the bucket alone at both Cs, bitwise.
+    live, q = 600, 8
+    rng = np.random.default_rng(seed + live)
+    a = rng.normal(size=(live, live))
+    base = (rng.normal(0, 0.1, (q, live)), a @ a.T / live + np.eye(live),
+            rng.normal(0, 1, (live,)))
+    tail = (rng.uniform(0.5, 1.0, q), rng.normal(0, 1, (q,)),
+            rng.normal(0, 1, (q,)), rng.uniform(0.0, 0.3, (q,)))
+    padded, times = {}, {}
+    for cp in (1024, c):
+        k = np.concatenate([base[0], np.zeros((q, cp - live))], 1)
+        sinv = np.eye(cp)
+        sinv[:live, :live] = base[1]
+        alpha = np.concatenate([base[2], np.zeros(cp - live)])
+        args = [torch.as_tensor(v, dtype=torch.float64, device=dev)
+                for v in (k, sinv, alpha) + tail]
+        padded[cp] = gp.gp_batch_infer(*args, live=live)
+        times[cp] = time_ms(lambda: gp.gp_batch_infer(*args, live=live),
+                            inner=10)
+    assert all(torch.equal(g, h) for g, h in zip(padded[1024], padded[c]))
+    log(f"  gp_batch_infer Q={q}, a fill of {live} padded to C=1024 and to "
+        f"C={c}: bitwise; {times[1024]:.6f} / {times[c]:.6f} ms (CUDA "
+        "events, wrapper included)")
+    records["padded"] = times
     return records
 
 
@@ -2751,6 +2795,347 @@ def workload_intelligence(rel, cfg, seed, smi):
     return {**e2e, **counts}
 
 
+# ------------------------------------------------------------------ phase 8
+SERVE_WARM = 200  # warm-up queries of each of phase 8's sessions
+SERVE_FRESH = 256  # queries of the concurrent burst
+SERVE_THREADS = 8  # threads submitting the burst at once
+SERVE_MAX_BATCH = 64  # the service's auto-flush threshold
+SERVE_TARGET = 0.02  # the burst's target_rel_error
+SERVE_MESH_QUERIES = 32  # queries of the local-against-mesh service check
+
+
+def _served_bits(ans):
+    return (ans.batches_used, [(c.group, c.agg, c.kind, c.estimate, c.beta2)
+                               for c in ans.cells])
+
+
+def _result_bits(r):
+    return (r.batches_used, r.tuples_scanned, r.cells)
+
+
+def _warm(sessions, warm):
+    """The same warm-up through ``execute_many`` in each session, drained;
+    their answers must agree bitwise."""
+    answers = [sess.execute_many(warm) for sess in sessions]
+    for sess in sessions:
+        sess.drain()
+    first = [_served_bits(a) for a in answers[0]]
+    for other in answers[1:]:
+        assert [_served_bits(a) for a in other] == first, "warm-ups differ"
+
+
+def _burst(svc, queries):
+    """``SERVE_THREADS`` threads submit ``queries`` at once (thread k takes
+    queries k, k + SERVE_THREADS, ...) through the auto-flush, then one
+    final flush. Returns each query's ticket and latency (s, submit to
+    resolution, host clock; an answer is host floats, so the device work
+    it needed is done), the flushes' queries in order, and the wall time
+    (s)."""
+    import threading
+
+    import torch
+    from repro_torch.serving import aqp as serving_aqp
+
+    slices = []
+    inner = svc._execute_slice
+
+    def spy(qs):
+        slices.append(list(qs))
+        return inner(qs)
+
+    svc._execute_slice = spy
+    orig = serving_aqp.Ticket._resolve
+
+    def stamped(ticket, result):
+        ticket.resolved_at = time.perf_counter()
+        orig(ticket, result)
+
+    tickets, submitted = [None] * len(queries), [0.0] * len(queries)
+    errors = []
+    start = threading.Barrier(SERVE_THREADS)
+
+    def submitter(k):
+        try:
+            start.wait()
+            for i in range(k, len(queries), SERVE_THREADS):
+                submitted[i] = time.perf_counter()
+                tickets[i] = svc.submit(queries[i])
+        except Exception as e:  # noqa: BLE001 — raised after the join
+            errors.append(e)
+
+    serving_aqp.Ticket._resolve = stamped
+    try:
+        threads = [threading.Thread(target=submitter, args=(k,))
+                   for k in range(SERVE_THREADS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        svc.flush()
+        answers = [t.result(timeout=600) for t in tickets]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        serving_aqp.Ticket._resolve = orig
+        del svc._execute_slice
+    assert all(t.resolutions == 1 for t in tickets), "a ticket resolved twice"
+    assert svc.pending == 0, svc.pending
+    failed = [i for i, a in enumerate(answers) if getattr(a, "failed", False)]
+    assert not failed, [answers[i] for i in failed[:3]]
+    ids = sorted(id(q) for s in slices for q in s)
+    assert ids == sorted(id(q) for q in queries), "a query lost or run twice"
+    lat = [t.resolved_at - s for t, s in zip(tickets, submitted)]
+    return tickets, np.asarray(lat), slices, wall
+
+
+def _replay(tickets, queries, slices, twin, budget):
+    """Replay the service's flushes, in order, through ``twin``'s
+    ``execute_many``: every served answer must be bitwise the twin's."""
+    by_query = {id(q): t for q, t in zip(queries, tickets)}
+    for k, qs in enumerate(slices):
+        for j, (q, w) in enumerate(zip(qs, twin.execute_many(qs, budget))):
+            got = by_query[id(q)].result()
+            assert _served_bits(got) == _served_bits(w), (
+                f"flush {k} query {j}: the service's answer differs from "
+                "the twin's execute_many of the same slice")
+
+
+def _ingest_summary(eng):
+    stats = eng.ingest_stats()
+    return ({k: v["high_water"] for k, v in stats.items()},
+            {k: v["shed_count"] for k, v in stats.items()})
+
+
+def serving_service(rel, cfg, seed, smi):
+    """Phase 8 on phase 3's relation: the microbatching ``AqpService``
+    (``Session.serve``) under concurrent submitters, ingest under load,
+    faults, deadlines, the pre-screen and a mesh."""
+    import dataclasses
+
+    import torch
+    from repro_torch.aqp.workload import tpch_workload
+    from repro_torch.ft import faults
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import AqpService
+    from repro_torch.verdict import ErrorBudget, FailedAnswer, Mesh, connect
+
+    log(f"== phase 8: the microbatching AqpService on {rel.device}, "
+        f"{rel.cardinality} rows; card: {smi}")
+    t_phase = time.perf_counter()
+    budget = ErrorBudget(target_rel_error=SERVE_TARGET)
+    warm = tpch_workload(seed + 30, rel.schema, SERVE_WARM)
+    fresh = tpch_workload(seed + 31, rel.schema, SERVE_FRESH)
+
+    # 1. Concurrent submitters; a twin replays the flushes; a third session
+    # answers the same queries one by one.
+    s, twin, seq = (connect(rel, cfg) for _ in range(3))
+    t0 = time.perf_counter()
+    _warm((s, twin, seq), warm)
+    log(f"warm-up: {SERVE_WARM} queries through execute_many in each of "
+        f"three sessions, {time.perf_counter() - t0:.3f} s")
+    svc = s.serve(max_batch=SERVE_MAX_BATCH, budget=budget)
+    reset_launch_counts()
+    eval_calls = []
+    inner = svc._execute_slice
+
+    def counted(qs):  # the scan rounds each flush ran
+        out = inner(qs)
+        eval_calls.append(svc.executor.stats.eval_calls)
+        return out
+
+    svc._execute_slice = counted
+    tickets, lat, slices, wall = _burst(svc, fresh)
+    s.drain()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    k3 = counts["se_cov_matrix"] + counts["se_cov_gram"]
+    assert counts["fused_masked_scan"] == sum(eval_calls) > 0, (
+        counts, eval_calls)
+    assert counts["gp_batch_infer"] > 0 and k3 > 0, counts
+    assert counts["masked_partials"] == 0, counts
+    high, shed = _ingest_summary(s.engine)
+    _assert_healthy(s.engine)
+    lat_ms = lat * 1e3
+    e2e = {"qps": len(fresh) / wall,
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "flushes": len(slices), "flush_sizes": [len(q) for q in slices],
+           "launches": {"K1": counts["fused_masked_scan"],
+                        "K2": counts["gp_batch_infer"], "K3": k3},
+           "high_water": max(high.values()), "shed": sum(shed.values())}
+    log(f"service: {len(fresh)} queries from {SERVE_THREADS} threads in "
+        f"{wall:.3f} s = {e2e['qps']:.2f} q/s; ticket latency p50 "
+        f"{e2e['p50_ms']:.3f} ms, p99 {e2e['p99_ms']:.3f} ms; "
+        f"{len(slices)} flushes of {e2e['flush_sizes']} queries, scan rounds "
+        f"{eval_calls}; launches K1 {counts['fused_masked_scan']}, K2 "
+        f"{counts['gp_batch_infer']}, K3 {k3} (general "
+        f"{counts['se_cov_matrix']}, Gram {counts['se_cov_gram']}); every "
+        "ticket resolved exactly once, none failed; ingest high_water "
+        f"{high}, shed {shed}")
+    t0 = time.perf_counter()
+    _replay(tickets, fresh, slices, twin, budget)
+    log(f"twin: the {len(slices)} flushes replayed in order through "
+        "execute_many, every answer bitwise the service's "
+        f"({time.perf_counter() - t0:.3f} s)")
+    one = []
+    t0 = time.perf_counter()
+    for q in fresh:
+        t = time.perf_counter()
+        seq.execute(q, budget)
+        torch.cuda.synchronize()
+        one.append(time.perf_counter() - t)
+    seq_wall = time.perf_counter() - t0
+    one_ms = np.asarray(one) * 1e3
+    e2e["one_by_one"] = {"qps": len(fresh) / seq_wall,
+                         "p50_ms": float(np.percentile(one_ms, 50)),
+                         "p99_ms": float(np.percentile(one_ms, 99))}
+    log(f"one by one: the same {len(fresh)} queries through execute on a "
+        f"third session, {e2e['one_by_one']['qps']:.2f} q/s, p50 "
+        f"{e2e['one_by_one']['p50_ms']:.3f} ms, p99 "
+        f"{e2e['one_by_one']['p99_ms']:.3f} ms ({smi})")
+    for sess in (s, twin, seq):
+        sess.drain()
+    del s, twin, seq, svc
+
+    # 2. Ingest under load: two pending batches a synopsis at most; the
+    # answers and the final store bitwise a synchronous twin's.
+    s2 = connect(rel, dataclasses.replace(cfg, ingest_max_pending=2))
+    sync = connect(rel, dataclasses.replace(cfg, async_ingest=False))
+    _warm((s2, sync), warm)
+    svc2 = s2.serve(max_batch=SERVE_MAX_BATCH, budget=budget)
+    tickets2, lat2, slices2, wall2 = _burst(svc2, fresh)
+    _replay(tickets2, fresh, slices2, sync, budget)
+    s2.drain()
+    high2, shed2 = _ingest_summary(s2.engine)
+    assert all(v <= 2 for v in high2.values()), high2
+    got_sd = s2.engine.synopses_state_dict()
+    want_sd = sync.engine.synopses_state_dict()
+    assert sorted(got_sd) == sorted(want_sd)
+    for name in want_sd:
+        for k in want_sd[name]:
+            if k == "ingest_high_water":  # telemetry, not model state
+                continue
+            assert np.array_equal(np.asarray(got_sd[name][k]),
+                                  np.asarray(want_sd[name][k])), (name, k)
+    _assert_healthy(s2.engine)
+    e2e["bounded"] = {"qps": len(fresh) / wall2,
+                      "p50_ms": float(np.percentile(lat2 * 1e3, 50)),
+                      "flushes": len(slices2), "high_water": high2,
+                      "shed": shed2}
+    log(f"ingest_max_pending=2: {len(fresh)} queries in {wall2:.3f} s = "
+        f"{e2e['bounded']['qps']:.2f} q/s, p50 "
+        f"{e2e['bounded']['p50_ms']:.3f} ms, {len(slices2)} flushes; "
+        f"high_water {high2} (bound 2), shed {shed2}; answers and final "
+        "store bitwise the async_ingest=False twin fed the same slices")
+    del s2, sync, svc2
+
+    # 3. Faults on 4-query slices.
+    qs4 = fresh[:4]
+    chaos, clean = connect(rel, cfg), connect(rel, cfg)
+    svc3 = chaos.serve(max_batch=SERVE_MAX_BATCH, budget=budget)
+    calls = []
+    inner3 = svc3._execute_slice
+
+    def counting(qs):
+        calls.append(len(qs))
+        return inner3(qs)
+
+    svc3._execute_slice = counting
+    got = [svc3.submit(q) for q in qs4]
+    with faults.inject(faults.FaultSpec("scan.eval", hits=(0,))) as plan:
+        svc3.flush()
+        assert plan.fires.get("scan.eval") == 1, plan.fires
+    assert calls == [4, 4], calls  # the slice, failed; again, clean
+    want = clean.serve(max_batch=SERVE_MAX_BATCH, budget=budget).execute(qs4)
+    assert [_served_bits(t.result()) for t in got] == [
+        _served_bits(w) for w in want], "the retried slice differs"
+    psvc = AqpService(chaos.engine, max_batch=SERVE_MAX_BATCH,
+                      target_rel_error=SERVE_TARGET, max_retries=1,
+                      backoff_base_s=0.001)
+    doomed = [psvc.submit(q) for q in fresh[4:8]]
+    with faults.inject(faults.FaultSpec("scan.eval", rate=1.0)):
+        psvc.flush()
+    for t in doomed:
+        ans = t.result()
+        assert isinstance(ans, FailedAnswer), ans
+        assert ans.error_type == "InjectedFault" and ans.attempts == 5, ans
+    ok = psvc.submit(fresh[4])
+    psvc.flush()
+    assert not getattr(ok.result(), "failed", False), ok.result()
+    chaos.drain(), clean.drain()
+    _assert_healthy(chaos.engine)
+    log("faults: a transient scan.eval fault cost exactly two slice "
+        "executions [4, 4], answers bitwise a clean twin's; a persistent "
+        "one resolved 4 tickets to FailedAnswer(InjectedFault, attempts 5), "
+        "and the service answered again once it was gone")
+    del chaos, clean
+
+    # 4. A deadline of 0 s: degraded answers, never cached; with a cache a
+    # repeat is pre-screened, bitwise, launching nothing.
+    cached = connect(rel, cfg, cache=True)
+    dsvc = cached.serve(max_batch=4, budget=ErrorBudget(deadline_s=0.0))
+    first = dsvc.submit(fresh[0]).result()
+    assert first.degraded and "deadline" in first.degraded_reasons, first
+    again = dsvc.submit(fresh[0])
+    assert dsvc.prescreened == 0 and dsvc.pending == 1
+    second = again.result()
+    assert second.degraded and second.served_from is None
+    assert cached.stats()["intel"]["insertions"] == 0
+    hsvc = cached.serve(max_batch=SERVE_MAX_BATCH)  # full accuracy
+    full = hsvc.submit(fresh[1]).result()
+    cached.drain()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t = time.perf_counter()
+    hit = hsvc.submit(fresh[1])
+    assert hit._done and hsvc.pending == 0 and hsvc.prescreened == 1
+    hit_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    assert launch_counts() == before, "a pre-screened hit launched kernels"
+    assert hit.result().served_from == "cache:exact"
+    assert _served_bits(hit.result()) == _served_bits(full)
+    log(f"deadline_s=0: degraded ({sorted(first.degraded_reasons)}), never "
+        "cached (the repeat entered a microbatch); pre-screen: the repeat "
+        f"of a full-accuracy answer resolved at submit in {hit_ms:.3f} ms, "
+        "bitwise, no launch, pending 0")
+    del cached
+
+    # 5. The service over a four-shard mesh on the card: bitwise the local
+    # service, K4 once per scan round and no K1.
+    mesh = Mesh((rel.device,) * N_SHARDS)
+    qs = fresh[:SERVE_MESH_QUERIES]
+    runs = {}
+    for name, kw in (("local", {}), ("mesh", {"mesh": mesh})):
+        sess = connect(rel, cfg)
+        msvc = AqpService(sess.engine, max_batch=SERVE_MAX_BATCH,
+                          target_rel_error=SERVE_TARGET, **kw)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = msvc.execute(qs)
+        sess.drain()
+        torch.cuda.synchronize()
+        runs[name] = (res, launch_counts(), msvc)
+    (r_loc, c_loc, lsvc), (r_msh, c_msh, msvc) = runs["local"], runs["mesh"]
+    rounds = msvc.last_stats.eval_calls
+    assert msvc.executor.placement.blocks_evaluated == rounds > 0
+    assert c_msh["masked_partials"] == rounds, (c_msh, rounds)
+    assert c_msh["fused_masked_scan"] == 0, c_msh
+    assert c_loc["fused_masked_scan"] == lsvc.last_stats.eval_calls > 0
+    assert c_loc["masked_partials"] == 0, c_loc
+    assert [_result_bits(r) for r in r_msh] == [
+        _result_bits(r) for r in r_loc], "the mesh service differs"
+    log(f"mesh: AqpService(mesh=Mesh(({rel.device},) * {N_SHARDS})) answered "
+        f"{len(qs)} queries bitwise like the local service; K4 launches "
+        f"{c_msh['masked_partials']} = {rounds} scan rounds, K1 0")
+    e2e["mesh_rounds"] = rounds
+    e2e["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 8 took {e2e['seconds']:.1f} s")
+    return e2e
+
+
 # ------------------------------------------------------------------ phase 4
 def _decisions(a, b, i, cfg, target, d):
     """Compare the decisions of query ``i`` in two engines, each read from
@@ -2801,15 +3186,16 @@ def _compare(ra, rb, cfg, target):
     decision: after it the engines record different raw answers and their
     states part. Returns the largest relative difference of the estimates
     of AVG cells (``avg``) and of the other cells (``other``), of the
-    cells' beta^2 (``beta2``), of the other cells' estimates over their 95%
-    half-width (``other_ci``), of the decisions' inputs (``stop``,
-    ``theta``), the number of queries whose cells were compared (``n``) and
-    the flips (``flips``)."""
+    cells' beta^2 (``beta2``; where it came from in ``beta2_at``) and their
+    95% half-widths (``half_width``), of the other cells' estimates over
+    their 95% half-width (``other_ci``), of the decisions' inputs
+    (``stop``, ``theta``), the number of queries whose cells were compared
+    (``n``) and the flips (``flips``)."""
     from repro_torch.utils.stats import confidence_multiplier
 
     a_r = float(confidence_multiplier(cfg.report_delta))
-    d = dict(avg=0.0, other=0.0, beta2=0.0, other_ci=0.0, stop=0.0,
-             theta=0.0, n=0, flips=[])
+    d = dict(avg=0.0, other=0.0, beta2=0.0, half_width=0.0, other_ci=0.0,
+             stop=0.0, theta=0.0, n=0, flips=[], beta2_at=None)
     for i, (a, b) in enumerate(zip(ra, rb)):
         if d["flips"]:  # states parted: record further flips only
             _decisions(a, b, i, cfg, target,
@@ -2819,11 +3205,15 @@ def _compare(ra, rb, cfg, target):
         if d["flips"]:
             continue
         d["n"] += 1
-        for ca, cb in zip(a.cells, b.cells):
+        for j, (ca, cb) in enumerate(zip(a.cells, b.cells)):
             diff = abs(ca["estimate"] - cb["estimate"])
             rel = diff / max(abs(cb["estimate"]), 1e-300)
-            d["beta2"] = max(d["beta2"], abs(ca["beta2"] - cb["beta2"])
-                             / max(cb["beta2"], 1e-300))
+            b2 = abs(ca["beta2"] - cb["beta2"]) / max(cb["beta2"], 1e-300)
+            if b2 > d["beta2"]:
+                d["beta2"], d["beta2_at"] = b2, _beta2_cell(a, b, i, j)
+            d["half_width"] = max(d["half_width"], abs(
+                np.sqrt(ca["beta2"]) - np.sqrt(cb["beta2"])) / max(
+                    np.sqrt(cb["beta2"]), 1e-300))
             if ca["kind"] == "AVG":
                 d["avg"] = max(d["avg"], rel)
             else:
@@ -2833,13 +3223,41 @@ def _compare(ra, rb, cfg, target):
     return d
 
 
+def _beta2_cell(a, b, i, j):
+    """Where a cell's beta^2 came from in two engines' answers to query
+    ``i``: the cell, and for each snippet it reads (its AVG and FREQ rows)
+    the synopsis key, the raw beta^2, both improved beta^2 and both
+    ``accepted``."""
+    from repro_torch.core.types import AVG
+
+    gi, ai, kind, avg_row, freq_row = a.plan.cells[j]
+    sa, sb = a.snippet_answer, b.snippet_answer
+    rows = []
+    for row in (avg_row, freq_row):
+        if row < 0:
+            continue
+        agg = int(a.plan.snippets.agg[row])
+        rows.append({
+            "synopsis": (f"AVG measure {int(a.plan.snippets.measure[row])}"
+                         if agg == AVG else "FREQ"),
+            "raw_beta2": float(sb.raw_beta2[row]),
+            "beta2": (float(sa.beta2[row]), float(sb.beta2[row])),
+            "accepted": (bool(sa.accepted[row]), bool(sb.accepted[row]))})
+    return {"query": i, "cell": j, "kind": kind,
+            "group": a.plan.groups[gi], "beta2": (a.cells[j]["beta2"],
+                                                  b.cells[j]["beta2"]),
+            "snippets": rows}
+
+
 def _log_compare(what, d):
     log(f"{what}: cells of {d['n']} queries compared, largest relative "
         f"difference AVG {d['avg']:.3e}, COUNT/SUM {d['other']:.3e} "
         f"({d['other_ci']:.3e} of their 95% half-width), beta^2 "
-        f"{d['beta2']:.3e}; decision inputs: largest relative error "
-        f"{d['stop']:.3e}, model theta {d['theta']:.3e}; "
-        f"{len(d['flips'])} flipped decisions")
+        f"{d['beta2']:.3e} (95% half-width {d['half_width']:.3e}); decision "
+        f"inputs: largest relative error {d['stop']:.3e}, model theta "
+        f"{d['theta']:.3e}; {len(d['flips'])} flipped decisions")
+    if d["beta2_at"] is not None:
+        log(f"  largest beta^2 difference at {d['beta2_at']}")
     for i, what_, x, y, dist in d["flips"]:
         log(f"  flip: query {i} {what_} {x} vs {y}, input {dist:.3e} from "
             "its threshold (relative)")
@@ -2901,6 +3319,7 @@ def against_plain(seed):
     _hold_phase4(d)
     out = {"avg_rel": d["avg"], "count_sum_rel": d["other"],
            "count_sum_of_half_width": d["other_ci"], "beta2_rel": d["beta2"],
+           "half_width_rel": d["half_width"],
            "stop_input_rel": d["stop"], "theta_input_rel": d["theta"],
            "flips": len(d["flips"])}
     # Both engines refit with the same few steps (the CPU engine is the slow
@@ -3035,11 +3454,14 @@ def against_plain_wide(seed):
 
 def _hold_phase4(d):
     """Phase 4's rule: AVG cells within rtol 1e-8, COUNT and SUM within a
-    tenth of their half-width, a flip only where its input lay within
-    FLIP_FACTOR of the engines' largest difference in that input."""
+    tenth of their half-width, every cell's half-width within
+    HALF_WIDTH_RTOL of the other engine's, a flip only where its input lay
+    within FLIP_FACTOR of the engines' largest difference in that input."""
     assert d["n"] > 0
     assert d["avg"] <= 1e-8, d["avg"]
     assert d["other_ci"] <= 0.1, d["other_ci"]
+    assert d["half_width"] <= HALF_WIDTH_RTOL, (d["half_width"],
+                                                d["beta2_at"])
     allowed = {"batches_used": FLIP_FACTOR * d["stop"],
                "accepted": FLIP_FACTOR * d["theta"]}
     bad = [f for f in d["flips"] if f[4] > allowed[f[1]]]
@@ -3084,6 +3506,7 @@ def main():
     mesh_counts, e2e5 = facade_and_mesh(rel, cfg, args.seed)
     k5_launches = k5_on_the_scan_placement(rel, cfg, args.seed)
     e2e7 = workload_intelligence(rel, cfg, args.seed, smi)
+    e2e8 = serving_service(rel, cfg, args.seed, smi)
     del rel
     worst = against_plain(args.seed)
     worst_wide, wide_counts, k3_shapes = against_plain_wide(args.seed)
@@ -3185,7 +3608,8 @@ def main():
         "4's wide CUDA engine, its serving and its refit (Gram launches "
         "without derivatives: all Gram launches less those with)")
     log(f"end to end: phase 3 {json.dumps(e2e)}; phase 6 {json.dumps(e2e6)}; "
-        f"phase 5 {json.dumps(e2e5)}; phase 7 {json.dumps(e2e7)};"
+        f"phase 5 {json.dumps(e2e5)}; phase 7 {json.dumps(e2e7)}; "
+        f"phase 8 {json.dumps(e2e8)};"
         f" CUDA vs CPU {json.dumps(worst)}; wide CUDA vs CPU "
         f"{json.dumps(worst_wide)};"
         f" total {time.perf_counter() - t_start:.1f} s")

@@ -9,9 +9,9 @@ whole workload into one scan. The machinery lives in the shared plan IR
    dedups identical snippets across queries into two fused sets;
 2. two ``PhysicalPlan``s scan sample batches lazily, evaluating each batch
    EXACTLY ONCE for the union of snippets — supported queries through the
-   ``ScanPlacement`` (local, or sharded over a mesh) with the engine's
-   per-block evaluator, raw-only probes through ``plain_eval``; on the card
-   both launch a scan kernel;
+   executor's ``ScanPlacement`` (the engine's own by default, or sharded
+   over a ``mesh=``) with the engine's per-block evaluator, raw-only probes
+   through ``plain_eval``; on the card both launch a scan kernel;
 3. ``replay_query`` replays queries in submission order against cumulative
    per-batch partials: improve, early-stop per query, record — the same
    state transitions, in the same order, as query-at-a-time execution.
@@ -25,6 +25,7 @@ import time
 from typing import List, Optional, Sequence
 
 from repro_torch.aqp import queries as Q
+from repro_torch.aqp.executor import ScanPlacement, scan_placement
 from repro_torch.aqp.plan import (
     BatchStats,
     PhysicalPlan,
@@ -41,17 +42,31 @@ __all__ = ["BatchExecutor", "BatchStats"]
 class BatchExecutor:
     """Fused executor over one ``VerdictEngine`` (see module docstring).
 
-    The scan routes through the engine's ``ScanPlacement`` (``engine.scan``)
-    with the engine's per-block evaluator. Stats of the latest call are kept
-    in ``self.stats``.
+    The scan routes through a ``ScanPlacement`` with the engine's per-block
+    evaluator: pass ``placement=`` directly, or ``mesh=`` (a
+    ``repro_torch.aqp.executor.Mesh``, whose one axis must be
+    ``mesh_axis``) to build a ``ShardedScanPlacement``; with neither, the
+    engine's own placement (``engine.scan``), so served queries accrue
+    into the engine's scan telemetry. Stats of the latest call are kept in
+    ``self.stats``.
     """
 
-    def __init__(self, engine):
+    def __init__(self, engine, mesh=None, mesh_axis: str = "data",
+                 placement: Optional[ScanPlacement] = None):
         self.engine = engine
+        if placement is None:
+            if mesh is not None and mesh.axis_names != (mesh_axis,):
+                raise ValueError(f"mesh_axis {mesh_axis!r} is not the mesh's "
+                                 f"axis {mesh.axis_names}")
+            placement = (scan_placement(mesh) if mesh is not None
+                         else engine.scan)
+        self.placement = placement
+        self.mesh = placement.mesh
+        self.mesh_axis = placement.axis
         self.stats = BatchStats()
 
     def _eval(self, block, padded: SnippetBatch):
-        return self.engine.scan.eval_block(
+        return self.placement.eval_block(
             block, padded, local_eval=self.engine._eval_fn)
 
     def execute_many(

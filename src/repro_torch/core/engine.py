@@ -240,6 +240,25 @@ class VerdictEngine:
     def _tuples(self, used_batches: int) -> int:
         return int(sum(len(b) for b in self.batches.batch_rows[:used_batches]))
 
+    def _execute_raw_only(self, q, reason, max_batches):
+        """Forced raw-only execution: raw answers over the supported-subset
+        probe, no learning, whatever ``q``'s own supportedness (§2.2). The
+        lifecycle is the ``supported=False`` branch of ``replay_query``: no
+        scan loop lives here. On the card the probe's scan launches the
+        fused scan kernel, as every raw-only scan does."""
+        from repro_torch.aqp.plan import (LogicalPlan, PhysicalPlan,
+                                          SnippetInterner, plain_eval,
+                                          replay_query)
+
+        probe = self.raw_only_probe(q)
+        groups = self._discover_groups_many([probe])[0]
+        plan = Q.decompose(self.schema, probe, groups, n_max=self.config.n_max)
+        interner = SnippetInterner(self.schema)
+        rows = interner.intern(plan.snippets)
+        lp = LogicalPlan(0, q, probe, reason or "forced raw-only", plan, rows)
+        phys = PhysicalPlan(self.batches, interner.fused(), plain_eval)
+        return replay_query(self, lp, phys, max_batches=max_batches)
+
     def raw_only_probe(self, q: Q.AggQuery) -> Q.AggQuery:
         """The supported-subset probe the raw-only path evaluates (§2.2)."""
         supported_aggs = tuple(
@@ -306,20 +325,23 @@ class VerdictEngine:
         queries,
         target_rel_error: Optional[float] = None,
         max_batches: Optional[int] = None,
+        mesh=None,
         stop_delta: Optional[float] = None,
         deadline_s: Optional[float] = None,
     ) -> List[QueryResult]:
         """Execute a workload through the fused ``BatchExecutor`` path.
 
         Every sample batch is scanned exactly once for the whole workload
-        (identical snippets deduped across queries). ``stop_delta``
-        overrides the confidence level of the early-stop check;
-        ``deadline_s`` bounds each query's wall clock. With ``intel``
-        attached, cache hits are served before the scan.
+        (identical snippets deduped across queries). ``mesh``: scan over a
+        ``Mesh`` for this call (``ShardedScanPlacement``; answers bitwise
+        the local scan's) instead of the engine's placement.
+        ``stop_delta`` overrides the confidence level of the early-stop
+        check; ``deadline_s`` bounds each query's wall clock. With
+        ``intel`` attached, cache hits are served before the scan.
         """
         from repro_torch.aqp.batch import BatchExecutor
 
-        return BatchExecutor(self).execute_many(
+        return BatchExecutor(self, mesh=mesh).execute_many(
             queries, target_rel_error=target_rel_error,
             max_batches=max_batches, stop_delta=stop_delta,
             deadline_s=deadline_s,

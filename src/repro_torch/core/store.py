@@ -336,15 +336,25 @@ class ShardedSynopsisStore(SynopsisStore):
     """Per-aggregate-key synopsis placement over the devices of a mesh.
 
     ``mesh``: a ``repro_torch.aqp.executor.Mesh`` (the same object shards
-    the scan). A device listed several times is several shards on one
-    device. ``shard_index`` is a hash of the key modulo the device count,
-    so a checkpoint re-places onto any mesh with no table to persist.
+    the scan). ``devices`` overrides the mesh's device list (re-placing a
+    checkpoint onto a subset); with neither, every visible CUDA card, and
+    no card is an error. A device listed several times is several shards
+    on one device. ``shard_index`` is a hash of the key modulo the device
+    count, so a checkpoint re-places onto any mesh with no table to
+    persist.
     """
 
     kind = "sharded"
 
-    def __init__(self, schema, config, mesh):
-        self.devices = list(mesh.devices)
+    def __init__(self, schema, config, mesh=None, devices=None):
+        if devices is None:
+            devices = (mesh.devices if mesh is not None else
+                       [torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())])
+        if not len(devices):
+            raise ValueError("ShardedSynopsisStore needs at least one device "
+                             "(no mesh, no devices and no CUDA card)")
+        self.devices = [resolve_device(d) for d in devices]
         super().__init__(schema, config, self.devices[0])
 
     # ---------------------------------------------------------- placement

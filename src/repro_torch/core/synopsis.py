@@ -797,9 +797,11 @@ class Synopsis:
         past, valid, sinv, alpha = self._padded_state()
         k_mat, kappa2, mu_new = _improve_inputs(past, valid, self.params,
                                                 padded_new)
+        # K is zero past the fill: the kernel's split follows the fill's own
+        # bucket, so a raised fill floor (padding) never moves a bit.
         m_theta, m_beta2, _ = gp_ops.gp_batch_infer(
             k_mat, sinv, alpha, kappa2, mu_new, raw_theta, raw_beta2,
-            dtype=torch.float32 if use_kernel else F64)
+            dtype=torch.float32 if use_kernel else F64, live=self.n)
         theta, beta2, accepted = validation.validate(
             padded_new.agg, m_theta.to(F64), m_beta2.to(F64), raw_theta,
             raw_beta2, self.delta_v)

@@ -24,9 +24,15 @@
 //    row over its 64 columns with a fixed tree (thread, quad shuffle, the
 //    eight column groups in order). It writes one gamma partial per (row, j,
 //    s); the blocks of split 0 also write the K·alpha partial of (row, j).
-//    The split (depth_split) is a function of C alone, never of Q: about
-//    264 blocks a row tile (two resident on each of 132 SMs, one wave), at
-//    least 64 deep. At C = 2000: 32 column tiles x 8 splits of 256.
+//    The split (depth_split) is a function of C_split alone, the power of
+//    two (at least 8) that covers C's live columns (a synopsis' fill),
+//    never of Q: about 264 blocks a row tile (two resident on each of 132
+//    SMs, one wave), at least 64 deep. Past the live columns K is zero
+//    (padding), so the blocks cover only E = min(C, C_split) columns and
+//    depth: a fill padded to any C reads and sums exactly what it would
+//    at C = C_split, bit for bit. At C = 2000 full: 32 column tiles x 8
+//    splits of 256; a fill of 600 padded to 2000: 16 x 16 splits of 64,
+//    as at C = 1024.
 //  * Each block streams its K and Sinv sub-blocks through a ring of stages
 //    in shared memory (as many as two blocks an SM leave room for, 3 to 8:
 //    at C = 2000 in f64, 4 stages 32 deep at Q <= 32 and 3 stages 16 deep
@@ -66,7 +72,8 @@ namespace {
 // and of its Sinv columns.
 constexpr int MIN_STAGES = 3, MAX_STAGES = 8;
 constexpr size_t SMEM_PER_SM = 224 * 1024;
-// The depth split: C's own function, never Q's (nor the tiling's). Aim for
+// The depth split: a function of C_split alone, never of Q (nor the
+// tiling, nor C's padding past the live columns). Aim for
 // SLOTS blocks of 64 columns (two resident on each of the H100's 132 SMs:
 // one wave), each split a multiple of SPLIT_STEP and at least KD_MIN deep.
 constexpr int SLOTS = 2 * 132;
@@ -74,11 +81,11 @@ constexpr int SLOT_COLS = 64;
 constexpr int SPLIT_STEP = 32;  // a multiple of every tiling's BK
 constexpr int KD_MIN = 64;
 
-__host__ __device__ constexpr int depth_split(int C) {
-  const int n_ct = (C + SLOT_COLS - 1) / SLOT_COLS;
+__host__ __device__ constexpr int depth_split(int C_split) {
+  const int n_ct = (C_split + SLOT_COLS - 1) / SLOT_COLS;
   const int want = n_ct > 0 && SLOTS / n_ct > 1 ? SLOTS / n_ct : 1;
-  const int kd =
-      ((C + want - 1) / want + SPLIT_STEP - 1) / SPLIT_STEP * SPLIT_STEP;
+  const int kd = ((C_split + want - 1) / want + SPLIT_STEP - 1) / SPLIT_STEP *
+                 SPLIT_STEP;
   return kd > KD_MIN ? kd : KD_MIN;
 }
 
@@ -205,7 +212,7 @@ __device__ __forceinline__ void stage_product(const float* a_s,
 template <typename T, int VEC, class Tl>
 __global__ void __launch_bounds__(Tl::THREADS, Tl::BLOCKS)
     gp_partials(const T* __restrict__ K, const T* __restrict__ S,
-                const T* __restrict__ alpha, int Q, int C, int KD,
+                const T* __restrict__ alpha, int Q, int C, int E, int KD,
                 int ring_rows, int stages, T* __restrict__ part_g,
                 T* __restrict__ part_t) {
   constexpr int MT = Tl::MT, NT = Tl::NT, WM = Tl::WM, WN = Tl::WN;
@@ -222,7 +229,7 @@ __global__ void __launch_bounds__(Tl::THREADS, Tl::BLOCKS)
   const int n_ct = gridDim.x, n_splits = gridDim.y;
   const int row0 = blockIdx.z * BM, col0 = ct * BN;
   const int k_begin = split * KD;
-  const int k_end = min(C, k_begin + KD);
+  const int k_end = min(E, k_begin + KD);
   const int n_st = (k_end - k_begin + BK - 1) / BK;
   const int wrow0 = row0 + wm * WM;
   const bool active = wrow0 < Q;  // warp-uniform
@@ -246,7 +253,7 @@ __global__ void __launch_bounds__(Tl::THREADS, Tl::BLOCKS)
     for (int i = tid; i < BK * BN / VEC; i += THREADS) {
       const int kk = i / (BN / VEC), n = (i % (BN / VEC)) * VEC;
       const int k = k0 + kk, col = col0 + n;
-      const bool ok = k < k_end && col < C;
+      const bool ok = k < k_end && col < E;
       cp_async<static_cast<int>(VEC * sizeof(T))>(
           b_s + kk * B_LD + n, ok ? S + (size_t)k * C + col : S, ok);
     }
@@ -297,10 +304,10 @@ __global__ void __launch_bounds__(Tl::THREADS, Tl::BLOCKS)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = col0 + wn * WN + nt * 8 + 2 * t + e;
-          const bool ok = row < Q && col < C;
+          const bool ok = row < Q && col < E;
           const T kv = ok ? K[(size_t)row * C + col] : T(0);
           gs = fma(acc[mt][nt][2 * h + e], kv, gs);
-          if (split == 0) ts = fma(kv, col < C ? alpha[col] : T(0), ts);
+          if (split == 0) ts = fma(kv, col < E ? alpha[col] : T(0), ts);
         }
         gs += __shfl_xor_sync(0xffffffffu, gs, 1);
         gs += __shfl_xor_sync(0xffffffffu, gs, 2);
@@ -388,51 +395,56 @@ __global__ void __launch_bounds__(FIN_THREADS)
 
 template <typename T, int VEC, class Tl>
 cudaError_t launch_tiled(const T* K, const T* S, const T* alpha, int Q,
-                            int C, int KD, T* part_g, T* part_t,
+                            int C, int E, int KD, T* part_g, T* part_t,
                             cudaStream_t s) {
   static uint64_t opted_in = 0;  // devices this instance may use smem on
   cudaError_t e = opt_in_smem(
       reinterpret_cast<const void*>(gp_partials<T, VEC, Tl>), opted_in);
   if (e != cudaSuccess) return e;
   const Ring ring = ring_for<T, Tl>(Q);
-  dim3 grid((C + Tl::BN - 1) / Tl::BN, (C + KD - 1) / KD,
+  dim3 grid((E + Tl::BN - 1) / Tl::BN, (E + KD - 1) / KD,
             (Q + Tl::BM - 1) / Tl::BM);
   gp_partials<T, VEC, Tl><<<grid, Tl::THREADS, ring.bytes, s>>>(
-      K, S, alpha, Q, C, KD, ring.rows, ring.stages, part_g, part_t);
+      K, S, alpha, Q, C, E, KD, ring.rows, ring.stages, part_g, part_t);
   return cudaGetLastError();
 }
 
 template <typename T, int VEC>
 cudaError_t launch_partials(const T* K, const T* S, const T* alpha, int Q,
-                            int C, int KD, T* part_g, T* part_t,
+                            int C, int E, int KD, T* part_g, T* part_t,
                             cudaStream_t s) {
   return Q <= Narrow::BM
-             ? launch_tiled<T, VEC, Narrow>(K, S, alpha, Q, C, KD, part_g,
+             ? launch_tiled<T, VEC, Narrow>(K, S, alpha, Q, C, E, KD, part_g,
                                             part_t, s)
-             : launch_tiled<T, VEC, Wide>(K, S, alpha, Q, C, KD, part_g,
+             : launch_tiled<T, VEC, Wide>(K, S, alpha, Q, C, E, KD, part_g,
                                           part_t, s);
 }
 
 template <typename T>
 int gp_launch(const T* K, const T* S, const T* alpha, const T* kappa2,
               const T* mu, const T* rawt, const T* rawb, int Q, int C,
-              T* part_g, T* part_t, T* theta, T* beta2, T* gamma2,
-              void* stream) {
+              int C_split, T* part_g, T* part_t, T* theta, T* beta2,
+              T* gamma2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q <= 0) return 0;
-  if (C < 0 || (Q + Wide::BM - 1) / Wide::BM > 65535)
+  if (C < 0 || C_split < 1 || (Q + Wide::BM - 1) / Wide::BM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int KD = depth_split(C);
+  // Columns and depth at or past E = min(C, C_split) hold K = 0 (padding):
+  // they are not read, and add nothing.
+  const int E = C < C_split ? C : C_split;
+  const int KD = depth_split(C_split);
   const int BN = Q <= Narrow::BM ? Narrow::BN : Wide::BN;
-  const int n_ct = (C + BN - 1) / BN, n_splits = (C + KD - 1) / KD;
-  if (C > 0) {
+  const int n_ct = (E + BN - 1) / BN, n_splits = (E + KD - 1) / KD;
+  if (E > 0) {
     constexpr int VEC = 16 / sizeof(T);
     const bool vec = C % VEC == 0 &&
                      reinterpret_cast<uintptr_t>(K) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(S) % 16 == 0;
     cudaError_t e =
-        vec ? launch_partials<T, VEC>(K, S, alpha, Q, C, KD, part_g, part_t, s)
-            : launch_partials<T, 1>(K, S, alpha, Q, C, KD, part_g, part_t, s);
+        vec ? launch_partials<T, VEC>(K, S, alpha, Q, C, E, KD, part_g,
+                                      part_t, s)
+            : launch_partials<T, 1>(K, S, alpha, Q, C, E, KD, part_g, part_t,
+                                    s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   static uint64_t fin_opted_in = 0;
@@ -450,42 +462,46 @@ int gp_launch(const T* K, const T* S, const T* alpha, const T* kappa2,
 
 // Plain C entry points (bound with ctypes). Both passes run on `stream`;
 // nothing is allocated here; the return value is cudaGetLastError().
-// part_g: (Q, ceil(C/64), ceil(C/128)) and part_t: (Q, ceil(C/64)) scratch
-// of the same type (gp_plan reports the tiling).
+// C_split: the power of two covering C's live columns (the wrapper's
+// gp_split_basis), which alone sets the depth split. part_g: (Q, n_ct,
+// n_splits) and part_t: (Q, n_ct) scratch of the same type (gp_plan
+// reports the tiling).
 extern "C" int gp_launch_f64(const double* K, const double* S,
                              const double* alpha, const double* kappa2,
                              const double* mu, const double* rawt,
-                             const double* rawb, int Q, int C, double* part_g,
-                             double* part_t, double* theta, double* beta2,
-                             double* gamma2, void* stream) {
-  return gp_launch<double>(K, S, alpha, kappa2, mu, rawt, rawb, Q, C, part_g,
-                           part_t, theta, beta2, gamma2, stream);
+                             const double* rawb, int Q, int C, int C_split,
+                             double* part_g, double* part_t, double* theta,
+                             double* beta2, double* gamma2, void* stream) {
+  return gp_launch<double>(K, S, alpha, kappa2, mu, rawt, rawb, Q, C, C_split,
+                           part_g, part_t, theta, beta2, gamma2, stream);
 }
 
 extern "C" int gp_launch_f32(const float* K, const float* S,
                              const float* alpha, const float* kappa2,
                              const float* mu, const float* rawt,
-                             const float* rawb, int Q, int C, float* part_g,
-                             float* part_t, float* theta, float* beta2,
-                             float* gamma2, void* stream) {
-  return gp_launch<float>(K, S, alpha, kappa2, mu, rawt, rawb, Q, C, part_g,
-                          part_t, theta, beta2, gamma2, stream);
+                             const float* rawb, int Q, int C, int C_split,
+                             float* part_g, float* part_t, float* theta,
+                             float* beta2, float* gamma2, void* stream) {
+  return gp_launch<float>(K, S, alpha, kappa2, mu, rawt, rawb, Q, C, C_split,
+                          part_g, part_t, theta, beta2, gamma2, stream);
 }
 
 // The launch plan the entry points use, for the wrapper's tests:
 // out = {row tile, column tile, depth split, row tiles, column tiles,
-// splits, shared-memory bytes a block (f64), ring stages (f64)}. Returns 0.
-extern "C" int gp_plan(int Q, int C, int* out) {
+// splits, shared-memory bytes a block (f64), ring stages (f64)}; column
+// tiles and splits cover E = min(C, C_split). Returns 0.
+extern "C" int gp_plan(int Q, int C, int C_split, int* out) {
   const bool narrow = Q <= Narrow::BM;
   const int BM = narrow ? Narrow::BM : Wide::BM;
   const int BN = narrow ? Narrow::BN : Wide::BN;
   out[0] = BM;
   out[1] = BN;
-  const int KD = depth_split(C);
+  const int E = C < C_split ? C : C_split;
+  const int KD = depth_split(C_split);
   out[2] = KD;
   out[3] = (Q + BM - 1) / BM;
-  out[4] = (C + BN - 1) / BN;
-  out[5] = (C + KD - 1) / KD;
+  out[4] = (E + BN - 1) / BN;
+  out[5] = (E + KD - 1) / KD;
   const Ring ring = narrow ? ring_for<double, Narrow>(Q)
                            : ring_for<double, Wide>(Q);
   out[6] = static_cast<int>(ring.bytes);

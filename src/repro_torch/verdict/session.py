@@ -23,7 +23,8 @@ before the scan, a learned serve-path router, and their counters.
 ``refit`` relearns the GP parameters offline; ``save`` / ``load``
 checkpoint the learned synopses (and the intel plane's state) through a
 ``CheckpointManager``, and ``heal(manager)`` restores quarantined keys from
-one.
+one. ``serve`` opens a microbatching ``AqpService``
+(``repro_torch.serving``) over the session's engine.
 """
 from __future__ import annotations
 
@@ -370,3 +371,27 @@ class Session:
         """Restore learned synopses; the session resumes smarter. Returns
         the checkpoint's ``extra``."""
         return self.engine.load_synopses(manager, step)
+
+    def serve(self, max_batch: int = 64,
+              budget: Optional[ErrorBudget] = None, engine_lock=None):
+        """A microbatching ``AqpService`` over this session's engine.
+
+        The full ``budget`` (target, max_batches, delta, deadline_s)
+        applies to every flush, builders are accepted, and tickets resolve
+        to the typed ``QueryAnswer`` the session's own execute returns. The
+        session's tenant label rides along; ``engine_lock`` serializes
+        services that share this engine. No mesh is passed: the service's
+        executor adopts ``engine.scan``, so served queries keep the
+        session's (possibly sharded) scan and count in
+        ``stats()["scan"]``.
+        """
+        from repro_torch.serving.aqp import AqpService
+
+        budget = budget or ErrorBudget()
+        return AqpService(self.engine, max_batch=max_batch,
+                          target_rel_error=budget.target_rel_error,
+                          max_batches=budget.max_batches,
+                          stop_delta=budget.delta,
+                          deadline_s=budget.deadline_s,
+                          result_wrapper=QueryAnswer.from_result,
+                          tenant=self.tenant, engine_lock=engine_lock)

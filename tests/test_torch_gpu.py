@@ -40,7 +40,13 @@ Inputs are made from a seed with numpy. Tolerances:
     cache-free session fed the same misses; the router takes the same
     routes, with bitwise the same answers (each an always-improve twin's),
     under asynchronous and synchronous ingest; the highest fill floor the
-    router's ladder learns leaves improved answers bitwise.
+    router's ladder learns leaves improved answers bitwise;
+  - K2 given a fill padded past its own bucket (to C = 2000, as a fill
+    floor of 2048 pads it): bitwise the fill at its bucket, at the
+    default floor and through a router whose ladder reaches 2048;
+  - the microbatching service on the card: each flush bitwise a twin's
+    ``execute_many`` of the same slice, K1 once per scan round; over a
+    four-shard mesh bitwise the local service, through K4 alone.
 """
 import numpy as np
 import pytest
@@ -1076,3 +1082,197 @@ def test_a_raised_fill_floor_leaves_improved_answers_bitwise_on_the_card():
         runs.append([_bits(s.execute(q, budget)) for q in qs[4:]])
         s.drain()
     assert runs[0] == runs[1]
+
+
+def _fill_synopsis(fill, seed):
+    """An AVG synopsis of capacity 2000 on the card holding ``fill`` rows
+    of random range snippets, drained."""
+    from repro_torch.core.synopsis import Synopsis
+
+    schema = pt_types.Schema(num_lo=(0.0, 0.0), num_hi=(10.0, 10.0),
+                             cat_sizes=(4,), n_measures=1)
+    rng = np.random.default_rng(seed)
+    syn = Synopsis(schema, capacity=2000, device="cuda")
+    for _ in range(fill // 50):
+        snips = _random_snippets(schema, 50, rng)
+        snips = pt_types.SnippetBatch(
+            snips.lo, snips.hi, snips.cat,
+            torch.zeros_like(snips.agg), torch.zeros_like(snips.measure))
+        syn.add(snips, torch.as_tensor(rng.normal(5.0, 1.0, 50)),
+                torch.as_tensor(rng.uniform(0.01, 0.05, 50)))
+    syn.drain()
+    return schema, syn, rng
+
+
+def test_a_fill_floor_past_1024_leaves_synopsis_improve_bitwise():
+    """A fill of a few hundred rows served at the default floor (C = 1024)
+    and at ``min_fill_bucket=2048`` (C = capacity = 2000): the improve
+    kernel's depth split follows the fill, not the padded C, so the padded
+    columns add exact zeros and the improved answers are bitwise."""
+    from repro_torch.core.types import RawAnswer
+
+    schema, syn, rng = _fill_synopsis(600, seed=21)
+    assert syn.n == 600 and syn._fill_bucket() == 1024
+    new = _random_snippets(schema, 40, rng)
+    new = pt_types.SnippetBatch(new.lo, new.hi, new.cat,
+                                torch.zeros_like(new.agg),
+                                torch.zeros_like(new.measure))
+    raw = RawAnswer(torch.as_tensor(rng.normal(5.0, 1.0, 40), device="cuda"),
+                    torch.as_tensor(rng.uniform(0.01, 0.05, 40),
+                                    device="cuda"))
+    runs = []
+    for floor in (8, 2048):
+        syn.min_fill_bucket = floor
+        out = syn.improve(new, raw)
+        runs.append((out.theta, out.beta2, out.accepted))
+    assert syn._fill_bucket() == 2000
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_a_router_ladder_past_1024_leaves_served_answers_bitwise():
+    """The same through a session whose router has ``max_ladder_bucket=
+    2048``: its ladder, fed a fill past 1024, raises every synopsis' floor
+    to the capacity (2000), and the answers served after the move (no
+    target: route "scan", one improve at the end) are bitwise those of a
+    twin whose floors stayed."""
+    import repro_torch.verdict as vd
+    from repro_torch.aqp import workload as pt_w
+    from repro_torch.intel import IntelConfig, RouterConfig
+
+    runs, fills = [], []
+    for raise_floor in (False, True):
+        s = _intel_session(IntelConfig(router=RouterConfig(
+            max_ladder_bucket=2048, learn_ladder=False)), capacity=2000)
+        warm = pt_w.make_workload(3, s.schema, 300,
+                                  agg_kinds=("AVG", "COUNT", "SUM"))
+        s.execute_many(warm)
+        s.drain()
+        fills.append({k: syn.n for k, syn in s.store.items()})
+        if raise_floor:
+            router = s.intel.router
+            router._fill_hist[1500] = 10 ** 6
+            router.apply_ladder(s.engine)
+            assert router.learned_floors[1] == 2048
+            assert all(syn._fill_bucket() == 2000
+                       for _, syn in s.store.items())
+        qs = _intel_queries(s, 8)
+        runs.append([_bits(s.execute(q, vd.ErrorBudget())) for q in qs])
+        s.drain()
+    assert fills[0] == fills[1]
+    assert any(128 < n <= 1024 for n in fills[0].values()), fills[0]
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("live,q", [(600, 8), (600, 128), (1500, 8),
+                                    (173, 40)])
+def test_cuda_gp_batch_infer_padding_past_the_fill_is_bitwise(live, q, dtype):
+    """K2 given ``live`` past rows padded to their own bucket and to C =
+    2000 (Σ⁻¹ = I, k = 0, α = 0 past the fill): bitwise, and the library's
+    plan covers the fill's bucket alone at both Cs."""
+    bucket = pt_gp.gp_split_basis(live)
+    small = _gp_args(q, live, seed=live + q, pad_c=min(bucket, 2000) - live)
+    large = _gp_args(q, live, seed=live + q, pad_c=2000 - live)
+    got = pt_gp.gp_batch_infer(*small, dtype=dtype, live=live)
+    want = pt_gp.gp_batch_infer(*large, dtype=dtype, live=live)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for c in (min(bucket, 2000), 2000):
+        plan = pt_gp.gp_plan(q, c, live)
+        assert pt_gp.gp_plan_of_library(q, c, live)[:6] == (
+            plan.tile_q, plan.tile_c, plan.split, plan.n_row_tiles,
+            plan.n_col_tiles, plan.n_splits)
+    _check_gp(got, gp_batch_infer_ref(*large), dtype, q, float(small[5][0]))
+
+
+def test_the_service_answers_bitwise_its_flushes_replayed_on_the_card():
+    """``Session.serve`` on the card, six threads submitting through the
+    auto-flush: every ticket resolves once, and each flush's answers are
+    bitwise a twin session's ``execute_many`` of the same slice; the
+    flushes launched K1 once per scan round, K2 and K3."""
+    import threading
+
+    import repro_torch.verdict as vd
+    from repro_torch.aqp import workload as pt_w
+    from repro_torch.kernels import reset_launch_counts
+
+    s, twin = _intel_session(None), _intel_session(None)
+    budget = vd.ErrorBudget(target_rel_error=0.05)
+    qs = pt_w.make_workload(4, s.schema, 36, agg_kinds=("AVG", "COUNT",
+                                                          "SUM"))
+    svc = s.serve(max_batch=8, budget=budget)
+    slices, rounds = [], []
+    inner = svc._execute_slice
+
+    def spy(batch):
+        out = inner(batch)
+        slices.append(list(batch))
+        rounds.append(svc.executor.stats.eval_calls)
+        return out
+
+    svc._execute_slice = spy
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    tickets = [None] * len(qs)
+    start = threading.Barrier(6)
+
+    def submitter(k):
+        start.wait()
+        for i in range(k, len(qs), 6):
+            tickets[i] = svc.submit(qs[i])
+
+    threads = [threading.Thread(target=submitter, args=(k,))
+               for k in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    svc.flush()
+    answers = {id(q): t.result(timeout=300) for q, t in zip(qs, tickets)}
+    s.drain()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert all(t.resolutions == 1 for t in tickets) and svc.pending == 0
+    assert sorted(id(q) for b in slices for q in b) == sorted(map(id, qs))
+    assert counts["fused_masked_scan"] == sum(rounds) > 0
+    assert counts["gp_batch_infer"] > 0 and counts["se_cov_matrix"] > 0
+    for batch in slices:
+        for q, w in zip(batch, twin.execute_many(batch, budget)):
+            got = answers[id(q)]
+            assert not getattr(got, "failed", False)
+            assert (got.batches_used, _bits(got)) == (w.batches_used,
+                                                      _bits(w))
+    twin.drain()
+
+
+def test_the_service_over_a_mesh_launches_k4_per_round_on_the_card():
+    """``AqpService(mesh=Mesh((cuda,) * 4))``: bitwise the local service,
+    through the masked-partials kernel once per scan round and never the
+    fused scan."""
+    import repro_torch.verdict as vd
+    from repro_torch.aqp import workload as pt_w
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.serving import AqpService
+
+    runs = {}
+    for name in ("local", "mesh"):
+        s = _intel_session(None)
+        kw = {"mesh": vd.Mesh((s.engine.device,) * 4)} if name == "mesh" \
+            else {}
+        svc = AqpService(s.engine, max_batch=64, target_rel_error=0.05, **kw)
+        qs = pt_w.make_workload(6, s.schema, 12,
+                                agg_kinds=("AVG", "COUNT", "SUM"))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = svc.execute(qs)
+        s.drain()
+        torch.cuda.synchronize()
+        runs[name] = (res, launch_counts(), svc.last_stats.eval_calls)
+    (r_loc, c_loc, n_loc), (r_msh, c_msh, n_msh) = (runs["local"],
+                                                    runs["mesh"])
+    assert c_msh["masked_partials"] == n_msh > 0
+    assert c_msh["fused_masked_scan"] == 0
+    assert c_loc["fused_masked_scan"] == n_loc and c_loc["masked_partials"] == 0
+    assert [(r.batches_used, r.tuples_scanned, r.cells) for r in r_msh] == [
+        (r.batches_used, r.tuples_scanned, r.cells) for r in r_loc]

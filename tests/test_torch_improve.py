@@ -256,6 +256,35 @@ def test_gp_launch_plan(q, c):
     assert plan.split % pt_gp_ops.GP_SPLIT_STEP == 0
 
 
+@pytest.mark.parametrize("live", [1, 173, 600, 1024, 1500, 2000])
+def test_gp_split_follows_the_live_columns_not_the_padding(live):
+    """Given ``live`` columns that can be nonzero, K2's plan (split, column
+    tiles, splits, extent) is the same at the fill's own bucket and at any
+    padded C up to 2000, so padding never moves a bit; every element of
+    the live extent lies in exactly one block, and with ``live`` left out
+    the plan is the one for all of C."""
+    bucket = pt_gp_ops.gp_split_basis(live)
+    plans = [pt_gp_ops.gp_plan(q, c, live) for q in (8, 128)
+             for c in sorted({min(bucket, 2000), 2000})]
+    for q in (8, 128):
+        same = [p for p in plans if p.q_n == q]
+        assert len({p[2:] for p in same}) == 1, same
+    for plan in plans:
+        assert plan.extent == min(bucket, 2000) >= live
+        assert plan.split == pt_gp_ops.gp_depth_split(bucket)
+        blocks = [plan.block(ct, s, rt) for ct in range(plan.n_col_tiles)
+                  for s in range(plan.n_splits)
+                  for rt in range(plan.n_row_tiles)]
+        assert len(_partition([b[1] for b in blocks], plan.extent)) == \
+            plan.n_col_tiles
+        assert len(_partition([b[2] for b in blocks], plan.extent)) == \
+            plan.n_splits
+    assert pt_gp_ops.gp_plan(8, 2000)[2:8] == pt_gp_ops.gp_plan(
+        8, 2000, 2000)[2:8]
+    with pytest.raises(ValueError, match="live columns"):
+        pt_gp_ops.gp_plan(8, 100, 101)
+
+
 def test_gp_wrapper_cpu_path_counts_no_launch_and_rejects_dtype():
     inputs = [torch.as_tensor(v) for v in _gp_inputs(4, 16, 0)]
     before = launch_counts()["gp_batch_infer"]

@@ -445,10 +445,10 @@ def sweep_k2():
             for lib, name in zip(libs, K2_VARIANTS):
                 fn = getattr(lib, "gp_launch_f64" if dt == torch.float64
                              else "gp_launch_f32")
-                fn.argtypes = [P] * 7 + [I] * 2 + [P] * 6
+                fn.argtypes = [P] * 7 + [I] * 3 + [P] * 6
 
-                def call(fn=fn):
-                    err = fn(*[x.data_ptr() for x in args], q, c,
+                def call(fn=fn):  # C_split 2048: the fill C = 2000 covers
+                    err = fn(*[x.data_ptr() for x in args], q, c, 2048,
                              part_g.data_ptr(), part_t.data_ptr(),
                              out[0].data_ptr(), out[1].data_ptr(),
                              out[2].data_ptr(), stream)
