@@ -58,6 +58,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      persistent scan fault; a deadline of 0 s and the answer cache's
      pre-screen (no launch across a hit); the service over a four-shard
      mesh, bitwise the local one, through the masked-partials kernel;
+  9. the multi-tenant ``ServingFront`` on phase 3's relation through
+     ``serve_http`` on 127.0.0.1, driven with ``urllib`` only: two shared
+     tenants and an isolated one warmed with 200 queries (and two twins);
+     192 fresh queries from 24 client threads (every HTTP answer bitwise a
+     twin's ``execute_many`` of the same flushes, K1 launches equal to the
+     flushes' scan rounds across two engines flushing at once, q/s and
+     request latency); web's answers asked as bi (exact hits of the shared
+     cache, bitwise, no launch); chunked NDJSON streams (the final line
+     bitwise a twin's ``execute``) and explain; 429 / 503 / 400 / 404 and
+     healthz over the wire; shutdown leaving no handler thread;
   4. the slice against its plain path: a CUDA engine and a CPU engine on the
      same 600,000-row data must agree, before and after a short refit of
      both, and again on a 600,000-row relation of 9 numeric dims and 9
@@ -2815,13 +2825,14 @@ def _result_bits(r):
 
 def _warm(sessions, warm):
     """The same warm-up through ``execute_many`` in each session, drained;
-    their answers must agree bitwise."""
+    their answers must agree bitwise. Returns the first session's."""
     answers = [sess.execute_many(warm) for sess in sessions]
     for sess in sessions:
         sess.drain()
     first = [_served_bits(a) for a in answers[0]]
     for other in answers[1:]:
         assert [_served_bits(a) for a in other] == first, "warm-ups differ"
+    return answers[0]
 
 
 def _burst(svc, queries):
@@ -3133,6 +3144,389 @@ def serving_service(rel, cfg, seed, smi):
     e2e["mesh_rounds"] = rounds
     e2e["seconds"] = time.perf_counter() - t_phase
     log(f"phase 8 took {e2e['seconds']:.1f} s")
+    return e2e
+
+
+# ------------------------------------------------------------------ phase 9
+FRONT_WARM = 200  # warm-up queries of each engine and of each twin
+FRONT_PER_TENANT = 64  # fresh queries each burst tenant posts
+FRONT_CLIENTS = 8  # client threads of each burst tenant
+FRONT_TARGET = 0.02  # the burst tenants' target_rel_error
+FRONT_SHARED_HITS = 8  # web's burst queries posted again as bi
+FRONT_STREAMS = 2  # fresh queries streamed to etl
+FRONT_HEALTHZ = 50  # healthz round trips timed
+
+
+def _http(base, path, body=None):
+    """One request with ``urllib``: ``(status, headers, body bytes)``. An
+    HTTP error status is returned as a value, as the front maps it."""
+    import urllib.error
+    import urllib.request
+
+    data = (None if body is None else body if isinstance(body, bytes)
+            else json.dumps(body).encode())
+    req = urllib.request.Request(
+        base + path, data=data,
+        headers={} if data is None else {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _query_json(schema, q):
+    """An engine ``AggQuery`` as the wire's query JSON, by column name."""
+    from repro_torch.aqp import queries as Q
+
+    preds = []
+    for p in q.predicates:
+        if isinstance(p, Q.NumRange):
+            preds.append({"op": "between", "column": schema.num_names[p.dim],
+                          "lo": float(p.lo), "hi": float(p.hi)})
+        elif isinstance(p, Q.NumEq):
+            preds.append({"op": "equals", "column": schema.num_names[p.dim],
+                          "value": float(p.value)})
+        elif isinstance(p, Q.CatEq):
+            preds.append({"op": "equals", "column": schema.cat_names[p.dim],
+                          "value": int(p.value)})
+        else:
+            preds.append({"op": "one_of", "column": schema.cat_names[p.dim],
+                          "values": [int(v) for v in p.values]})
+    aggs = [{"kind": "count"} if a.kind == "COUNT" else
+            {"kind": a.kind.lower(), "measure": schema.measure_names[a.measure]}
+            for a in q.aggs]
+    return {"aggs": aggs, "where": preds,
+            "group_by": [schema.cat_names[d] for d in q.groupby]}
+
+
+def _wire_json(ans):
+    """What the front sends for ``ans``, after the JSON round trip."""
+    from repro_torch.serving.front import answer_to_json
+
+    return json.loads(json.dumps(answer_to_json(ans)))
+
+
+def _front_burst(base, plan, bodies):
+    """``FRONT_CLIENTS`` client threads a tenant post, all at once, the
+    tenant's queries (``plan``: tenant -> indices into ``bodies``) to its
+    ``/execute``; thread k takes the tenant's queries k, k +
+    ``FRONT_CLIENTS``, ... Returns each query's (status, body), its latency
+    (s, host clock around the request) and the burst's wall time (s)."""
+    import threading
+
+    import torch
+
+    got, lat, errors = {}, {}, []
+    start = threading.Barrier(len(plan) * FRONT_CLIENTS)
+
+    def client(name, k):
+        try:
+            start.wait()
+            for i in plan[name][k::FRONT_CLIENTS]:
+                t = time.perf_counter()
+                status, _, raw = _http(base, f"/v1/tenants/{name}/execute",
+                                       {"query": bodies[i]})
+                lat[i] = time.perf_counter() - t
+                got[i] = (status, json.loads(raw))
+        except Exception as e:  # noqa: BLE001 — raised after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(name, k))
+               for name in plan for k in range(FRONT_CLIENTS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    assert not errors, errors
+    return got, lat, wall
+
+
+def _handler_threads():
+    import threading
+
+    return [t for t in threading.enumerate()
+            if "process_request_thread" in t.name
+            or t.name == "serving-front-http"]
+
+
+def serving_front(rel, cfg, seed, smi, hit_p50_ms):
+    """Phase 9 on phase 3's relation: the multi-tenant ``ServingFront``
+    through ``serve_http`` on 127.0.0.1, driven with ``urllib`` only."""
+    import dataclasses
+
+    import torch
+    from repro_torch.aqp.workload import tpch_workload
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.front import (
+        ServingFront,
+        TenantSpec,
+        query_from_json,
+        serve_http,
+    )
+    from repro_torch.verdict import Cell, ErrorBudget, connect
+
+    log(f"== phase 9: the multi-tenant serving front over HTTP on "
+        f"{rel.device}, {rel.cardinality} rows; card: {smi}")
+    t_phase = time.perf_counter()
+    budget = ErrorBudget(target_rel_error=FRONT_TARGET)
+    warm = tpch_workload(seed + 40, rel.schema, FRONT_WARM)
+    fresh = tpch_workload(seed + 41, rel.schema,
+                          3 * FRONT_PER_TENANT + FRONT_STREAMS + 1)
+    bodies = [_query_json(rel.schema, q) for q in fresh]
+    for q, b in zip(fresh, bodies):  # the wire lowers to the same query
+        assert query_from_json(rel.schema, b).build() == q, (q, b)
+    front = ServingFront(rel, cfg, cache=True)
+    for name, iso in (("web", "shared"), ("bi", "shared"),
+                      ("etl", "isolated")):
+        front.add_tenant(TenantSpec(name, isolation=iso, rate=0,
+                                    max_batch=64, budget=budget))
+    front.add_tenant(TenantSpec("tiny", rate=0.001, burst=1))
+    front.add_tenant(TenantSpec("full", max_pending=0))
+    web, bi, etl = (front.tenant(n) for n in ("web", "bi", "etl"))
+    twin_shared, twin_iso = (connect(rel, cfg, cache=True) for _ in range(2))
+    t0 = time.perf_counter()
+    warm_answers = _warm((web.session, etl.session, twin_shared, twin_iso),
+                         warm)
+    log(f"warm-up: {FRONT_WARM} queries through execute_many on the shared "
+        f"engine, the isolated one and their twins, "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # Spies: the shared services' flushes go to one list (they run under
+    # the shared engine lock, so its order is the engine's), etl's to its
+    # own; each flush's scan rounds beside it.
+    flushes = {"shared": [], "iso": []}
+    rounds = []
+    for tenant, sink in ((web, "shared"), (bi, "shared"), (etl, "iso")):
+        svc = tenant.service
+        inner = svc._execute_slice
+
+        def spy(qs, svc=svc, inner=inner, sink=flushes[sink]):
+            out = inner(qs)
+            sink.append(list(qs))
+            rounds.append(svc.executor.stats.eval_calls)
+            return out
+
+        svc._execute_slice = spy
+    server = serve_http(front)
+    host, port = server.server_address
+    base = f"http://{host}:{port}"
+    log(f"serving on {base} (ThreadingHTTPServer, one thread a request)")
+
+    # 1. The burst: 8 client threads a tenant, 64 fresh queries a tenant.
+    plan = {name: list(range(k * FRONT_PER_TENANT,
+                             (k + 1) * FRONT_PER_TENANT))
+            for k, name in enumerate(("web", "bi", "etl"))}
+    reset_launch_counts()
+    got, lat, wall = _front_burst(base, plan, bodies)
+    web.session.drain(), etl.session.drain()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_burst = 3 * FRONT_PER_TENANT
+    assert sorted(got) == list(range(n_burst)), sorted(got)
+    bad = [(i, s, b.get("kind")) for i, (s, b) in got.items()
+           if s != 200 or b["kind"] != "answer"]
+    assert not bad, bad[:5]
+    k3 = counts["se_cov_matrix"] + counts["se_cov_gram"]
+    # The launch counts add up: two engines flushed at once, and K1 counted
+    # exactly one launch a scan round of every flush.
+    assert counts["fused_masked_scan"] == sum(rounds) > 0, (counts, rounds)
+    assert counts["gp_batch_infer"] > 0 and k3 > 0, counts
+    assert counts["masked_partials"] == 0, counts
+    for eng in (web.session.engine, etl.session.engine):
+        _assert_healthy(eng)
+
+    # Every miss bitwise the twins' replay of the same flushes, in order;
+    # a pre-screened answer (if any) holds bitwise cells its engine
+    # recorded before.
+    by_query = {fresh[i]: i for i in range(n_burst)}
+    t0 = time.perf_counter()
+    flushed = set()
+    cells_of = (lambda answers: {c[1:] for a in answers
+                                 for c in _served_bits(a)[1]})
+    recorded = {"shared": cells_of(warm_answers),
+                "iso": cells_of(warm_answers)}
+    for sink, twin in (("shared", twin_shared), ("iso", twin_iso)):
+        for k, qs in enumerate(flushes[sink]):
+            for j, (q, w) in enumerate(zip(qs, twin.execute_many(qs,
+                                                                  budget))):
+                i = by_query[q]
+                flushed.add(i)
+                assert got[i][1] == _wire_json(w), (
+                    f"{sink} flush {k} query {j}: the HTTP answer differs "
+                    "from the twin's execute_many of the same slice")
+                recorded[sink].update(cells_of([w]))
+    prescreened = sorted(set(range(n_burst)) - flushed)
+    for i in prescreened:
+        body = got[i][1]
+        sink = "iso" if i in plan["etl"] else "shared"
+        assert body["served_from"].startswith("cache:"), body
+        # A cached answer's cells are literally recorded cells (filtered
+        # to the query's groups and projected onto its group-by).
+        assert all((c["agg"], c["kind"], c["estimate"], c["beta2"])
+                   in recorded[sink] for c in body["cells"]), i
+    replay_s = time.perf_counter() - t0
+    st = json.loads(_http(base, "/v1/stats")[2])
+    lat_ms = np.asarray([lat[i] for i in range(n_burst)]) * 1e3
+    # Flush sizes as {size: flushes}, per engine.
+    sizes = {s: {n: [len(q) for q in flushes[s]].count(n)
+                 for n in sorted({len(q) for q in flushes[s]})}
+             for s in flushes}
+    e2e = {"qps": n_burst / wall,
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "flush_sizes": sizes, "prescreened": len(prescreened),
+           "launches": {"K1": counts["fused_masked_scan"],
+                        "K2": counts["gp_batch_infer"], "K3": k3},
+           "tenants": {}}
+    for name in plan:
+        h = st["tenants"][name]["metrics"]["latency"]["execute"]
+        e2e["tenants"][name] = {"p50_ms": h["p50_s"] * 1e3,
+                                "p99_ms": h["p99_s"] * 1e3,
+                                "flushes": st["tenants"][name]["service"][
+                                    "flushes"]}
+    log(f"burst: {n_burst} fresh queries from {3 * FRONT_CLIENTS} client "
+        f"threads ({FRONT_CLIENTS} each for web, bi (shared) and etl "
+        f"(isolated)) in {wall:.3f} s = {e2e['qps']:.2f} q/s; request "
+        f"latency p50 {e2e['p50_ms']:.3f} ms, p99 {e2e['p99_ms']:.3f} ms "
+        f"(host clock around urlopen; {smi}); every response 200 with kind "
+        f"answer; flushes by size ({{size: flushes}}) shared "
+        f"{sizes['shared']}, isolated {sizes['iso']}, {sum(rounds)} scan "
+        f"rounds ({sum(rounds) / len(rounds):.2f} a flush); launches K1 "
+        f"{counts['fused_masked_scan']} = the flushes' scan rounds, K2 "
+        f"{counts['gp_batch_infer']}, K3 {k3} (general "
+        f"{counts['se_cov_matrix']}, Gram {counts['se_cov_gram']}); "
+        f"pre-screened {len(prescreened)}")
+    log("  tenants' histograms (/v1/stats, log2 buckets' lower edges): "
+        + "; ".join(f"{n} p50 {v['p50_ms']:.3f} ms p99 {v['p99_ms']:.3f} ms"
+                    f" in {v['flushes']} flushes"
+                    for n, v in e2e["tenants"].items()))
+    log(f"twins: the {len(flushes['shared'])} shared and "
+        f"{len(flushes['iso'])} isolated flushes replayed in order through "
+        f"execute_many, every HTTP answer bitwise the twin's after the JSON "
+        f"round trip ({replay_s:.3f} s)")
+
+    # 2. Shared learning: web's answers that meet the target, asked as bi.
+    delta = cfg.report_delta
+    met = [i for i in plan["web"] if i in flushed and all(
+        Cell.from_dict(c).rel_error(delta) < FRONT_TARGET
+        for c in got[i][1]["cells"])][:FRONT_SHARED_HITS]
+    assert len(met) == FRONT_SHARED_HITS, len(met)
+    hits_before = st["shared_intel"]["per_tenant"]["bi"]["hits"]
+    # Quiesce every ingest thread (their covariance builds launch K3), so
+    # the counters see what a hit launches.
+    for sess in (web.session, etl.session, twin_shared, twin_iso):
+        sess.drain()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    hit_ms = []
+    for i in met:
+        t = time.perf_counter()
+        status, _, raw = _http(base, "/v1/tenants/bi/execute",
+                               {"query": bodies[i]})
+        hit_ms.append((time.perf_counter() - t) * 1e3)
+        body = json.loads(raw)
+        assert status == 200 and body["served_from"] == "cache:exact", body
+        assert body["cells"] == got[i][1]["cells"], i
+    torch.cuda.synchronize()
+    assert launch_counts() == before, "a shared-tenant hit launched kernels"
+    st = json.loads(_http(base, "/v1/stats")[2])
+    hits = st["shared_intel"]["per_tenant"]["bi"]["hits"] - hits_before
+    assert hits == FRONT_SHARED_HITS, hits
+    e2e["hit_p50_ms"] = float(np.percentile(hit_ms, 50))
+    log(f"shared learning: {FRONT_SHARED_HITS} of web's answers posted as "
+        f"bi, each served_from cache:exact with web's cells bitwise, no "
+        f"launch; bi's hits +{hits}; HTTP hit p50 {e2e['hit_p50_ms']:.3f} ms "
+        f"against phase 7's in-process hit p50 {hit_p50_ms:.3f} ms")
+
+    # 3. Stream and explain on the isolated tenant. ``Session.stream``
+    # never consults the serve-path router (``replay_rounds`` takes the
+    # improve route when it yields every round, as the reference does), so
+    # the twin executes on that route too: its router stops switching.
+    router = twin_iso.engine.intel.router
+    router.config = dataclasses.replace(router.config, route_switching=False)
+    stream_budget = {"target_rel_error": FRONT_TARGET}
+    lines = []
+    for i in range(n_burst, n_burst + FRONT_STREAMS):
+        status, headers, raw = _http(base, "/v1/tenants/etl/stream",
+                                     {"query": bodies[i],
+                                      "budget": stream_budget})
+        assert status == 200, (status, raw[:200])
+        assert headers["Content-Type"] == "application/x-ndjson", headers
+        assert headers["Transfer-Encoding"] == "chunked", headers
+        nd = [json.loads(line) for line in raw.splitlines()]
+        assert [r["final"] for r in nd] == (
+            [False] * (len(nd) - 1) + [True]), nd
+        want = twin_iso.execute(fresh[i], budget)
+        assert nd[-1] == _wire_json(want), (
+            f"stream of query {i}: the final line differs from the twin's "
+            "execute")
+        lines.append(len(nd))
+    status, _, raw = _http(base, "/v1/tenants/etl/explain",
+                           {"query": bodies[0]})
+    plan_body = json.loads(raw)
+    assert status == 200 and plan_body["kind"] == "plan", plan_body
+    log(f"stream: {FRONT_STREAMS} fresh queries to etl's /stream, chunked "
+        f"NDJSON of {lines} lines (one a round, only the last final), the "
+        f"final line bitwise the isolated twin's execute; /explain 200 "
+        f"kind plan (cache {plan_body['cache']}, route {plan_body['route']})")
+
+    # 4. Admission and errors over the wire.
+    tiny_q = {"query": bodies[-1]}
+    s1, _, _ = _http(base, "/v1/tenants/tiny/execute", tiny_q)
+    s2, h2, raw2 = _http(base, "/v1/tenants/tiny/execute", tiny_q)
+    assert s1 == 200 and s2 == 429, (s1, s2)
+    assert float(h2["Retry-After"]) > 0, h2
+    assert json.loads(raw2)["reason"] == "rate_limit"
+    s3, h3, raw3 = _http(base, "/v1/tenants/full/execute", tiny_q)
+    assert s3 == 503 and json.loads(raw3)["reason"] == "queue_full", s3
+    assert float(h3["Retry-After"]) > 0, h3
+    s4, _, raw4 = _http(base, "/v1/tenants/web/execute", b"{not json")
+    assert s4 == 400 and "invalid JSON" in json.loads(raw4)["error"], raw4
+    s5, _, _ = _http(base, "/v1/tenants/web/execute",
+                     {"query": {"aggs": []}})
+    assert s5 == 400, s5
+    s6, _, _ = _http(base, "/v1/tenants/ghost/execute", tiny_q)
+    s7, _, _ = _http(base, "/v1/nope")
+    s8, _, _ = _http(base, "/v1/tenants/web/delete", tiny_q)
+    assert (s6, s7, s8) == (404, 404, 404), (s6, s7, s8)
+    health_ms = []
+    for _ in range(FRONT_HEALTHZ):
+        t = time.perf_counter()
+        status, _, raw = _http(base, "/v1/healthz")
+        health_ms.append((time.perf_counter() - t) * 1e3)
+        assert status == 200 and json.loads(raw) == {"ok": True}
+    e2e["healthz_p50_ms"] = float(np.percentile(health_ms, 50))
+    st = json.loads(_http(base, "/v1/stats")[2])
+    for name, t in st["tenants"].items():
+        m = t["metrics"]
+        assert m["requests"] == (m["answered"] + m["degraded"] + m["failed"]
+                                 + sum(m["rejected"].values())), (name, m)
+    assert st["tenants"]["tiny"]["metrics"]["rejected"] == {"rate_limit": 1}
+    assert st["tenants"]["full"]["metrics"]["rejected"] == {"queue_full": 1}
+    log(f"admission and errors: tiny 200 then 429 (Retry-After "
+        f"{h2['Retry-After']} s), full 503, malformed bodies 400, an "
+        f"unknown tenant and routes 404; healthz p50 "
+        f"{e2e['healthz_p50_ms']:.3f} ms over {FRONT_HEALTHZ} round trips "
+        "(the transport alone); every tenant's requests = answered + "
+        "degraded + failed + rejected")
+
+    # 5. Shutdown: no handler thread left.
+    server.shutdown()
+    server.server_close()
+    deadline = time.perf_counter() + 10.0
+    while _handler_threads() and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    left = _handler_threads()
+    assert not left, [t.name for t in left]
+    for sess in (web.session, etl.session, twin_shared, twin_iso):
+        sess.drain()
+    e2e["seconds"] = time.perf_counter() - t_phase
+    log(f"server shut down, no handler thread left; phase 9 took "
+        f"{e2e['seconds']:.1f} s")
     return e2e
 
 
@@ -3507,6 +3901,7 @@ def main():
     k5_launches = k5_on_the_scan_placement(rel, cfg, args.seed)
     e2e7 = workload_intelligence(rel, cfg, args.seed, smi)
     e2e8 = serving_service(rel, cfg, args.seed, smi)
+    e2e9 = serving_front(rel, cfg, args.seed, smi, e2e7["hit_p50_ms"])
     del rel
     worst = against_plain(args.seed)
     worst_wide, wide_counts, k3_shapes = against_plain_wide(args.seed)
@@ -3609,7 +4004,7 @@ def main():
         "without derivatives: all Gram launches less those with)")
     log(f"end to end: phase 3 {json.dumps(e2e)}; phase 6 {json.dumps(e2e6)}; "
         f"phase 5 {json.dumps(e2e5)}; phase 7 {json.dumps(e2e7)}; "
-        f"phase 8 {json.dumps(e2e8)};"
+        f"phase 8 {json.dumps(e2e8)}; phase 9 {json.dumps(e2e9)};"
         f" CUDA vs CPU {json.dumps(worst)}; wide CUDA vs CPU "
         f"{json.dumps(worst_wide)};"
         f" total {time.perf_counter() - t_start:.1f} s")

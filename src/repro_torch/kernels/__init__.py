@@ -37,7 +37,8 @@ Kernels:
                        gradient (the backward of the learning path's NLL).
 
 Each wrapper counts its launches in a plain integer attribute,
-``<wrapper>.launches``, which ``launch_counts`` reads and
+``<wrapper>.launches``, through ``count_launch`` (under one lock: wrappers
+launch from several threads at once), which ``launch_counts`` reads and
 ``reset_launch_counts`` zeroes (with K3's launches by shape,
 ``se_covariance.ops.launch_shapes``).
 """
@@ -67,6 +68,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOG: Dict[str, str] = {}
 _LOCK = threading.Lock()
+# Launch counts: the serving thread, the ingest threads and an isolated
+# tenant's flushes launch the same kernels at once, and ``+= 1`` on an
+# attribute is a read, an add and a write another thread may interleave.
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -182,14 +187,29 @@ def _wrappers():
             "se_cov_grad": se_ops.se_cov_grad}
 
 
+def count_launch(*wrappers, shapes=None, key=None):
+    """Count one launch: add one to each wrapper's ``launches`` and, with
+    ``shapes`` (a ``collections.Counter``), one to ``shapes[key]``, all
+    under one lock, so no increment is lost between threads."""
+    with _COUNT_LOCK:
+        for fn in wrappers:
+            fn.launches += 1
+        if shapes is not None:
+            shapes[key] += 1
+
+
 def launch_counts() -> Dict[str, int]:
     """``{kernel: launches}`` since the last ``reset_launch_counts``."""
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    wrappers = _wrappers()
+    with _COUNT_LOCK:
+        return {k: fn.launches for k, fn in wrappers.items()}
 
 
 def reset_launch_counts():
     from repro_torch.kernels.se_covariance import ops as se_ops
 
-    for fn in _wrappers().values():
-        fn.launches = 0
-    se_ops.launch_shapes.clear()
+    wrappers = _wrappers()
+    with _COUNT_LOCK:
+        for fn in wrappers.values():
+            fn.launches = 0
+        se_ops.launch_shapes.clear()

@@ -44,6 +44,7 @@ from repro_torch.kernels import (
     RANGE_EPS,
     check_cuda_error,
     check_tensor,
+    count_launch,
     load,
 )
 from repro_torch.kernels.fused_masked_scan.ref import (
@@ -231,7 +232,7 @@ def fused_masked_scan(x, codes, measures, lo, hi, cat, valid=None):
             None if words is None else words.data_ptr(), out.data_ptr(),
             stream)
         check_cuda_error(err, "fused_masked_scan")
-        fused_masked_scan.launches += 1
+        count_launch(fused_masked_scan)
     return out
 
 
@@ -278,7 +279,7 @@ def masked_partials(mask, measures):
                     q_n, count, first, m, FMS_CHUNK_T, scratch.data_ptr(),
                     out.data_ptr(), stream)
         check_cuda_error(err, "masked_partials")
-        masked_partials.launches += 1
+        count_launch(masked_partials)
     return out
 
 

@@ -21,7 +21,12 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import check_cuda_error, check_tensor, load
+from repro_torch.kernels import (
+    check_cuda_error,
+    check_tensor,
+    count_launch,
+    load,
+)
 from repro_torch.kernels.gp_batch_infer.ref import gp_batch_infer_ref
 
 # The kernel's two tilings (see the .cu): a block covers GP_TILE_Q rows of
@@ -183,7 +188,7 @@ def gp_batch_infer(k_mat, sigma_inv, alpha, kappa2, mu_new, raw_theta,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_cuda_error(err, "gp_batch_infer")
-    gp_batch_infer.launches += 1
+    count_launch(gp_batch_infer)
     return theta, beta2, gamma2
 
 

@@ -30,6 +30,7 @@ from repro_torch.kernels import (
     RANGE_EPS,
     check_cuda_error,
     check_tensor,
+    count_launch,
     load,
 )
 from repro_torch.kernels.range_mask_agg.ref import F32, range_mask_agg_ref
@@ -114,7 +115,7 @@ def range_mask_agg(x, payload, lo, hi, extra_mask=None):
         extra_mask.data_ptr(), t_n, q_n, l, p, RMA_CHUNK_T, RANGE_EPS,
         scratch.data_ptr(), out.data_ptr(), p, stream)
     check_cuda_error(err, "range_mask_agg")
-    range_mask_agg.launches += 1
+    count_launch(range_mask_agg)
     return out
 
 

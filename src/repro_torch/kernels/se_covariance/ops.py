@@ -55,7 +55,12 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels import check_cuda_error, check_tensor, load
+from repro_torch.kernels import (
+    check_cuda_error,
+    check_tensor,
+    count_launch,
+    load,
+)
 from repro_torch.kernels.se_covariance.ref import (
     se_cov_derivs_ref,
     se_cov_grad_ref,
@@ -208,9 +213,9 @@ def _launch_general(lo_i, hi_i, lo_j, hi_j, ls, sigma2, norm_i, norm_j, *,
         ls.data_ptr(), norm_i.data_ptr(), norm_j.data_ptr(), sigma2,
         n_i, n_j, l, out.data_ptr(), _ptr(d), _stream(lo_i.device))
     check_cuda_error(err, "se_cov_matrix")
-    se_cov_matrix.launches += 1
-    se_cov_derivs.launches += int(derivs)
-    launch_shapes["general+derivs" if derivs else "general", n_i, n_j, l] += 1
+    count_launch(se_cov_matrix, *((se_cov_derivs,) if derivs else ()),
+                 shapes=launch_shapes,
+                 key=("general+derivs" if derivs else "general", n_i, n_j, l))
     return out, d
 
 
@@ -224,9 +229,9 @@ def _launch_gram(lo, hi, ls, sigma2, norm, *, derivs):
         lo.data_ptr(), hi.data_ptr(), ls.data_ptr(), norm.data_ptr(), sigma2,
         n, l, out.data_ptr(), _ptr(d), _stream(lo.device))
     check_cuda_error(err, "se_cov_gram")
-    se_cov_gram.launches += 1
-    se_cov_derivs.launches += int(derivs)
-    launch_shapes["gram+derivs" if derivs else "gram", n, n, l] += 1
+    count_launch(se_cov_gram, *((se_cov_derivs,) if derivs else ()),
+                 shapes=launch_shapes,
+                 key=("gram+derivs" if derivs else "gram", n, n, l))
     return out, d
 
 
@@ -244,7 +249,7 @@ def _launch_reduce(grad_out, d):
         grad_out.data_ptr(), d.data_ptr(), m, l, part.data_ptr(),
         grad.data_ptr(), _stream(d.device))
     check_cuda_error(err, "se_cov_grad")
-    se_cov_grad.launches += 1
+    count_launch(se_cov_grad)
     return grad
 
 

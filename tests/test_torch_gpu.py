@@ -46,7 +46,11 @@ Inputs are made from a seed with numpy. Tolerances:
     default floor and through a router whose ladder reaches 2048;
   - the microbatching service on the card: each flush bitwise a twin's
     ``execute_many`` of the same slice, K1 once per scan round; over a
-    four-shard mesh bitwise the local service, through K4 alone.
+    four-shard mesh bitwise the local service, through K4 alone;
+  - launch counts add up when two threads launch K1 at once;
+  - the serving front on the card: its miss path bitwise a direct
+    session, a shared tenant's hit launching nothing, and over HTTP the
+    execute answer and the NDJSON stream's final line bitwise a twin's.
 """
 import numpy as np
 import pytest
@@ -1276,3 +1280,153 @@ def test_the_service_over_a_mesh_launches_k4_per_round_on_the_card():
     assert c_loc["fused_masked_scan"] == n_loc and c_loc["masked_partials"] == 0
     assert [(r.batches_used, r.tuples_scanned, r.cells) for r in r_msh] == [
         (r.batches_used, r.tuples_scanned, r.cells) for r in r_loc]
+
+
+# ------------------------------------------------ launch counts, front
+def test_launch_counts_add_up_when_two_threads_launch_k1():
+    """Two threads launch K1 N times each, on separate blocks and streams
+    of the card, at once: the count is exactly 2N launches (times K1's
+    measure groups a call)."""
+    import threading
+
+    from repro_torch.kernels import reset_launch_counts
+
+    n = 200
+    blocks = [_block(5000, seed=40 + k, q_n=128) for k in range(2)]
+    calls = len(pt_fms.measure_groups(blocks[0][3].shape[1]))
+    start = threading.Barrier(2)
+    outs = [None, None]
+
+    def launcher(k):
+        _, num, cat, meas, snips = blocks[k]
+        with torch.cuda.stream(torch.cuda.Stream()):
+            start.wait()
+            for _ in range(n):
+                outs[k] = pt_fms.fused_masked_scan(num, cat, meas, snips.lo,
+                                                   snips.hi, snips.cat)
+            torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    threads = [threading.Thread(target=launcher, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert launch_counts()["fused_masked_scan"] == 2 * n * calls
+    for k, (_, num, cat, meas, snips) in enumerate(blocks):
+        assert torch.equal(outs[k], pt_fms.fused_masked_scan(
+            num, cat, meas, snips.lo, snips.hi, snips.cat))
+
+
+def _front(cache=True):
+    """A serving front on the card over the small relation of
+    ``_intel_session``, with a shared and an isolated tenant."""
+    import repro_torch.verdict as vd
+    from repro_torch.aqp import workload as pt_w
+    from repro_torch.serving.front import ServingFront, TenantSpec
+
+    rel = pt_w.make_relation(seed=5, n_rows=6_000, n_num=2, cat_sizes=(4,),
+                             n_measures=1, device="cuda")
+    cfg = vd.EngineConfig(sample_rate=0.2, n_batches=4, capacity=128, seed=0)
+    front = ServingFront(rel, cfg, cache=cache)
+    for name in ("a", "b"):
+        front.add_tenant(TenantSpec(name, isolation="shared"))
+    front.add_tenant(TenantSpec("iso", isolation="isolated"))
+    return front, rel, cfg
+
+
+def test_the_front_miss_path_is_bitwise_a_direct_session_on_the_card():
+    """Through admission and the isolated tenant's microbatch service, each
+    answer is bitwise a direct CUDA session's ``execute``; the flushes
+    launched K1, K2 and K3."""
+    import repro_torch.verdict as vd
+    from repro_torch.aqp import workload as pt_w
+    from repro_torch.kernels import reset_launch_counts
+
+    front, rel, cfg = _front()
+    direct = vd.connect(rel, cfg)
+    qs = pt_w.make_workload(7, rel.schema, 6,
+                            agg_kinds=("AVG", "COUNT", "SUM"))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for q in qs:
+        a, b = front.execute("iso", q), direct.execute(q)
+        assert a.served_from is None and not a.failed
+        assert (a.batches_used, _bits(a)) == (b.batches_used, _bits(b))
+    front.tenant("iso").session.drain()
+    direct.drain()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fused_masked_scan"] > 0 and counts["gp_batch_infer"] > 0
+    assert counts["se_cov_matrix"] + counts["se_cov_gram"] > 0
+
+
+def test_a_shared_tenant_hit_launches_nothing_on_the_card():
+    """Tenant ``b`` repeats each of tenant ``a``'s queries right after it
+    (a full-accuracy entry serves only while its synopsis is unchanged):
+    served from the shared cache, bitwise ``a``'s answer, no launch."""
+    import repro_torch.verdict as vd
+
+    front, rel, cfg = _front()
+    s = vd.connect(rel, cfg)
+    qs = _intel_queries(s, n=4)
+    for q in qs:
+        first = front.execute("a", q)
+        front.tenant("a").session.drain()
+        torch.cuda.synchronize()
+        before = launch_counts()
+        again = front.execute("b", q)
+        torch.cuda.synchronize()
+        assert launch_counts() == before
+        assert again.served_from == "cache:exact"
+        assert _bits(again) == _bits(first)
+    per = front.stats()["shared_intel"]["per_tenant"]
+    assert per["b"]["hits"] == len(qs) and per["a"]["hits"] == 0
+
+
+def test_http_answers_are_bitwise_the_card_sessions():
+    """Over HTTP on 127.0.0.1: ``/execute`` gives bitwise a CUDA twin's
+    answer after the JSON round trip, and ``/stream``'s NDJSON final line
+    bitwise the twin's ``execute`` under the same budget."""
+    import json
+    import urllib.request
+
+    import repro_torch.verdict as vd
+    from repro_torch.serving.front import (
+        answer_to_json,
+        budget_from_json,
+        query_from_json,
+        serve_http,
+    )
+
+    front, rel, cfg = _front()
+    qj = {"aggs": [{"kind": "avg", "measure": "v0"}, {"kind": "count"}],
+          "where": [{"op": "between", "column": "x0", "lo": 2.0, "hi": 8.0}],
+          "group_by": ["c0"]}
+    budget = {"target_rel_error": 0.05}
+    server = serve_http(front)
+    try:
+        host, port = server.server_address
+        base = f"http://{host}:{port}/v1/tenants"
+
+        def post(path, body):
+            req = urllib.request.Request(base + path,
+                                         data=json.dumps(body).encode())
+            with urllib.request.urlopen(req, timeout=300) as r:
+                assert r.status == 200
+                return [json.loads(line) for line in r]
+
+        got = post("/a/execute", {"query": qj, "budget": budget})[0]
+        rounds = post("/iso/stream", {"query": qj, "budget": budget})
+    finally:
+        server.shutdown()
+        server.server_close()
+    twin = vd.connect(rel, cfg)
+    want = twin.execute(query_from_json(twin.schema, qj),
+                        budget_from_json(budget))
+    want_json = json.loads(json.dumps(answer_to_json(want)))
+    assert got == want_json
+    assert [r["final"] for r in rounds] == [False] * (len(rounds) - 1) + [True]
+    assert rounds[-1] == want_json

@@ -191,3 +191,44 @@ def test_wrapper_rejects_other_devices():
         pt_fms.fused_masked_scan(num.to("meta"), cat.to("meta"),
                                  meas.to("meta"), snips.lo.to("meta"),
                                  snips.hi.to("meta"), snips.cat.to("meta"))
+
+
+def test_launch_counts_add_up_under_threads():
+    """``count_launch`` loses no increment when threads count at once
+    (the serving thread, the ingest threads and an isolated tenant's
+    flushes launch the same kernels): 8 threads x 20,000 launches of a
+    wrapper pair and a shape counter, with a short switch interval."""
+    import collections
+    import sys
+    import threading
+    import types
+
+    from repro_torch.kernels import count_launch
+
+    a, b = types.SimpleNamespace(launches=0), types.SimpleNamespace(launches=0)
+    shapes = collections.Counter()
+    n_threads, n = 8, 20_000
+    start = threading.Barrier(n_threads)
+
+    def launcher(k):
+        start.wait()
+        for _ in range(n):
+            count_launch(a, *((b,) if k % 2 else ()), shapes=shapes,
+                         key=("gram", k % 2))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launcher, args=(k,))
+                   for k in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert a.launches == n_threads * n
+    assert b.launches == n_threads // 2 * n
+    assert shapes == {("gram", 0): n_threads // 2 * n,
+                      ("gram", 1): n_threads // 2 * n}
