@@ -74,7 +74,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      measures (run last; phases 6 and 5 reuse phase 3's relation), whose
      refit runs K3's kernels for any l; then those kernels held against
      their plain versions at every shape that engine launched and at
-     ragged ones, and timed at the shapes it launched most.
+     ragged ones, and timed at the shapes it launched most;
+ 10. the LM stack's serving path (plain PyTorch, no kernel of its own):
+     qwen2.5-3b at full width and depth in bf16 (random weights from
+     ``init_params`` on the card), a 4 x 512 prefill and 32 decode steps
+     teacher-forced on a random continuation, every step's logits held
+     against the forward over the same tokens (argmax compared with each
+     step's own input token masked), the greedy loop timed for prefill and
+     decode (B = 4 and 1) beside their bounds, and peak memory; the card
+     against the CPU in float32 on the same weights for qwen2.5-3b,
+     rwkv6-3b and hymba-1.5b at full width and cut depth (``forward`` logits and a 16-token ``generate``),
+     the chunked RWKV6 and Mamba mixers against their sequential oracles;
+     and decode against prefill for every smoke config.
 The last two lines of standard output are the kernels' JSON record and the
 device record ``{"ok": true, "device": {...}}``.
 """
@@ -82,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -3862,6 +3874,312 @@ def _hold_phase4(d):
     assert not bad, f"flips outside {allowed} of their threshold: {bad}"
 
 
+# ------------------------------------------------------------------ phase 10
+LM_ARCH = "qwen2.5-3b"  # the full-width, full-depth serving run
+LM_PARAMS = 3_085_938_688  # count_params of qwen2.5-3b (6.17 GB in bf16)
+LM_B, LM_PROMPT, LM_STEPS = 4, 512, 32  # prompts, prompt tokens, decode steps
+LM_REPS = 3  # timed runs of each step (median)
+# bfloat16 decode against the teacher-forced forward over the same tokens:
+# every logit within 2**-4 of the forward's RMS logit (36 layers of bf16
+# activations, each rounded at 2**-9, summed in another order by a
+# one-token product than by the whole prompt's) plus 2**-7 of its own
+# magnitude (the logits are a bf16 product, 8 significant bits, widened to
+# float32: the input token's own logit is ~2048, where a bf16 ulp is 16).
+LM_BF16_TOL = (2.0 ** -4, 2.0 ** -7)
+# The port on the card against the port on the CPU, float32 with TF32 off:
+# a full-width logit is a dot product of 2048-2560 terms whose absolute sum
+# is ~35 times the logit (~1,600 for logits of ~45), so float32 (2**-23)
+# leaves ~2e-4 between summation orders; atol 1e-3 allows 4 times that.
+LM_F32_TOL = dict(rtol=1e-5, atol=1e-3)
+LM_CUT = {"qwen2.5-3b": 2, "rwkv6-3b": 2, "hymba-1.5b": 5}  # full width, depth
+LM_CPU_B, LM_CPU_S, LM_GEN = 2, 16, 16  # card-against-CPU prompts and steps
+BF16_PEAK_FLOPS = 989e12  # H100 SXM data sheet, dense bf16
+
+
+def _host_ms(fn, reps=LM_REPS):
+    """Median host time of ``fn`` between two synchronisations (ms)."""
+    import torch
+
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(samples))
+
+
+def _hold_decisions(got, want, what):
+    """Phase 4's rule for decisions: argmax equal wherever ``want``'s top-2
+    margin exceeds FLIP_FACTOR times the largest |got - want|. Returns
+    (largest difference, positions decided, positions)."""
+    import torch
+
+    diff = float((got - want).abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > FLIP_FACTOR * diff
+    flips = decided & (got.argmax(-1) != want.argmax(-1))
+    assert not bool(flips.any()), (
+        f"{what}: argmax differs at {int(flips.sum())} decided positions "
+        f"(largest logit difference {diff:.4e})")
+    return diff, int(decided.sum()), decided.numel()
+
+
+def _lm_inputs(cfg, rng, b, s):
+    tokens = rng.integers(0, cfg.vocab, (b, s)).astype(np.int64)
+    ctx = enc = None
+    if cfg.cross_attn:
+        ctx = rng.normal(size=(b, cfg.cross_attn.n_ctx, cfg.d_model)
+                         ).astype(np.float32)
+    if cfg.enc_dec:
+        enc = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+    return tokens, ctx, enc
+
+
+def _lm_forward(cfg, params, tokens, ctx, enc, dev):
+    """Teacher-forced logits (float32) of ``tokens`` on ``dev``."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    with torch.inference_mode():
+        tok = torch.as_tensor(tokens, device=dev)
+        if cfg.enc_dec:
+            ctx_t = T.encode(cfg, params, torch.as_tensor(enc, device=dev))
+        else:
+            ctx_t = None if ctx is None else torch.as_tensor(ctx, device=dev)
+        return T.forward(cfg, params, tok, ctx_tokens=ctx_t)[0]
+
+
+def _lm_full(seed, dev):
+    """qwen2.5-3b at full width and depth in bf16: prefill and greedy
+    decode held against the teacher-forced forward, then timed."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+
+    cfg = configs.get(LM_ARCH)
+    n = PM.count_params(cfg)
+    weight_bytes = n * 2
+    log(f"{LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
+        f"heads / {cfg.n_kv} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.param_dtype}: {n:,} parameters "
+        f"({weight_bytes / 1e9:.3f} GB)")
+    assert n == LM_PARAMS, n
+    log("allow_bf16_reduced_precision_reduction:",
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = PM.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    torch.cuda.synchronize()
+    log(f"init_params on the card: {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed)
+    # a random prompt and a random continuation of LM_STEPS tokens
+    seq_np = rng.integers(0, cfg.vocab, (LM_B, LM_PROMPT + LM_STEPS))
+    prompt = seq_np[:, :LM_PROMPT]
+    max_len = LM_PROMPT + LM_STEPS
+    prefill = E.make_prefill_step(cfg, max_len=max_len, device=dev)
+    serve = E.make_serve_step(cfg, device=dev)
+
+    # Held: prefill's last logits and every decode step's, teacher-forced
+    # on the continuation, against the forward over the same tokens. With
+    # random tied embeddings each position's own input token has by far
+    # the largest logit, so greedy tokens would only repeat the input:
+    # argmax is compared with that column masked on both sides.
+    with torch.inference_mode():
+        seq = torch.as_tensor(seq_np, device=dev)
+        last, caches = prefill(params, prompt)
+        step_logits = [last]
+        for i in range(LM_STEPS):
+            pos = LM_PROMPT + i
+            logits, caches = T.forward(cfg, params, seq[:, pos:pos + 1],
+                                       mode="decode", caches=caches, pos=pos)
+            step_logits.append(logits[:, -1])
+        got = torch.stack(step_logits, 1)  # (B, STEPS + 1, V)
+    want = _lm_forward(cfg, params, seq, None, None, dev)[:, LM_PROMPT - 1:]
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
+    scale = float(want.abs().max())
+    rms = float(want.square().mean().sqrt())
+    excess = (got - want).abs() - (LM_BF16_TOL[0] * rms
+                                   + LM_BF16_TOL[1] * want.abs())
+    diff = float((got - want).abs().max())
+    own = seq[:, LM_PROMPT - 1:, None]  # each position's input token
+    own_top = float((want.argmax(-1, keepdim=True) == own).float().mean())
+    masked_diff, decided, total = _hold_decisions(
+        got.scatter(-1, own, -1e30), want.scatter(-1, own, -1e30),
+        f"{LM_ARCH} decode")
+    log(f"{LM_ARCH} decode against the forward over the same tokens: "
+        f"{LM_STEPS} steps teacher-forced on a random continuation after a "
+        f"{LM_B} x {LM_PROMPT} prefill, largest logit difference {diff:.4f} "
+        f"(RMS logit {rms:.4f}, max |logit| {scale:.4f}; tolerance "
+        f"{LM_BF16_TOL[0]:.4e} of the RMS plus {LM_BF16_TOL[1]:.4e} of each "
+        f"|logit|, largest excess {float(excess.max()):.4f}); the input "
+        f"token is the argmax at {own_top:.4f} of positions; with its column"
+        f" masked (largest difference {masked_diff:.4f}), argmax equal at "
+        f"{decided} of {total} decided positions")
+    assert float(excess.max()) <= 0, float(excess.max())
+    del got, want, excess, caches, step_logits
+
+    def decode_run(b):  # greedy, for timing only
+        last, c = prefill(params, prompt[:b])
+        t = last.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(LM_STEPS):
+            t, c = serve(params, c, t, LM_PROMPT + i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / LM_STEPS
+
+    prefill_ms = _host_ms(lambda: prefill(params, prompt))
+    decode_ms = {}
+    for b in (LM_B, 1):
+        decode_run(b)  # warm-up
+        decode_ms[b] = float(np.median([decode_run(b)
+                                        for _ in range(LM_REPS)]))
+    peak = torch.cuda.max_memory_allocated()
+    prefill_bound = 2 * n * LM_B * LM_PROMPT / BF16_PEAK_FLOPS * 1e3
+    decode_bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"{LM_ARCH} prefill, B = {LM_B} x {LM_PROMPT} tokens: "
+        f"{prefill_ms:.3f} ms (bound {prefill_bound:.3f} ms by operations: "
+        f"2 x {n} x {LM_B * LM_PROMPT} / {BF16_PEAK_FLOPS:.3e} FLOP/s)")
+    for b in (LM_B, 1):
+        log(f"{LM_ARCH} decode, B = {b}: {decode_ms[b]:.3f} ms a step, "
+            f"{b * 1e3 / decode_ms[b]:.2f} tokens/s (bound {decode_bound:.3f}"
+            f" ms a step by bytes: {weight_bytes} B of weights read once / "
+            f"{HBM_BYTES_PER_S:.3e} B/s)")
+    log(f"{LM_ARCH} peak device memory: {peak / 1e9:.3f} GB "
+        f"(weights {weight_bytes / 1e9:.3f} GB)")
+    return dict(prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound,
+                decode_ms_b4=decode_ms[LM_B], decode_ms_b1=decode_ms[1],
+                decode_bound_ms=decode_bound,
+                tokens_per_s_b4=LM_B * 1e3 / decode_ms[LM_B],
+                tokens_per_s_b1=1e3 / decode_ms[1], peak_gb=peak / 1e9,
+                decode_diff=diff, decode_rms=rms,
+                decode_decided=[decided, total], decode_own_top=own_top)
+
+
+def _lm_card_vs_cpu(seed, dev):
+    """Full-width configs at cut depth in float32: the same weights on the
+    card and on the CPU, forward logits and a greedy ``generate``; the
+    chunked RWKV6 and Mamba mixers against their sequential oracles."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import mamba as M
+    from repro_torch.models import params as PM
+    from repro_torch.models import rwkv as R
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+
+    worst = {}
+    for arch, depth in LM_CUT.items():
+        cfg = dataclasses.replace(configs.get(arch), n_layers=depth,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        t0 = time.perf_counter()
+        cpu = PM.init_params(cfg, generator=torch.Generator().manual_seed(
+            seed), device="cpu")
+        card = T.Decoder(cfg, cpu).to(dev).tree()
+        rng = np.random.default_rng(seed)
+        tokens, ctx, enc = _lm_inputs(cfg, rng, LM_CPU_B, LM_CPU_S)
+        got = _lm_forward(cfg, card, tokens, ctx, enc, dev).cpu()
+        want = _lm_forward(cfg, cpu, tokens, ctx, enc, "cpu")
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **LM_F32_TOL,
+                                   err_msg=arch)
+        diff = float((got - want).abs().max())
+        gen_card = E.generate(cfg, card, tokens, LM_GEN, device=dev).cpu()
+        gen_cpu = E.generate(cfg, cpu, tokens, LM_GEN, device="cpu")
+        assert torch.equal(gen_card, gen_cpu), (arch, gen_card, gen_cpu)
+        line = (f"{arch} at full width, {depth} layers, float32: card against"
+                f" CPU forward logits largest difference {diff:.4e} (max "
+                f"|logit| {float(want.abs().max()):.4f}), {LM_GEN} greedy "
+                "tokens equal")
+        if cfg.ssm is not None:  # the chunked mixer against its oracle
+            # the first layer with a mixer of its own: rwkv6's first, and
+            # hymba's second group (a sliding-window layer)
+            gi = 0 if cfg.ssm.kind == "rwkv6" else 1
+            lp = card["groups"][gi]["sub0"]["ssm"]
+            if cfg.layer_plan()[gi][1] > 1:
+                lp = PM.tree_map(lambda t: t[0], lp)
+            s = 37 if cfg.ssm.kind == "rwkv6" else 23
+            x = torch.as_tensor(rng.normal(size=(2, s, cfg.d_model)).astype(
+                np.float32), device=dev)
+            mix, ref = (R.rwkv6_mix, R.rwkv6_mix_ref) \
+                if cfg.ssm.kind == "rwkv6" else (M.mamba_mix, M.mamba_mix_ref)
+            with torch.inference_mode():
+                a, b = mix(cfg, lp, x)[0], ref(cfg, lp, x)
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=2e-4, atol=2e-5, err_msg=arch)
+            line += (f"; chunked {cfg.ssm.kind} against its sequential "
+                     f"oracle on the card, S = {s}: largest difference "
+                     f"{float((a - b).abs().max()):.4e}")
+        log(line + f" ({time.perf_counter() - t0:.1f} s)")
+        worst[arch] = diff
+        del cpu, card
+    return worst
+
+
+def _lm_smoke_archs(seed, dev):
+    """Every arch's smoke config on the card: decode against prefill."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import params as PM
+    from repro_torch.serving import engine as E
+
+    out = {}
+    for arch in configs.names():
+        cfg = configs.get_smoke(arch)
+        params = PM.init_params(
+            cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev)
+        rng = np.random.default_rng(seed)
+        tokens, ctx, enc = _lm_inputs(cfg, rng, LM_CPU_B, LM_CPU_S)
+        s = LM_CPU_S
+        full = _lm_forward(cfg, params, tokens, ctx, enc, dev)
+        n_ctx = ctx.shape[1] if ctx is not None else (
+            s if enc is not None else 0)
+        prefill = E.make_prefill_step(cfg, max_len=s + cfg.meta_tokens + 4,
+                                      n_ctx=n_ctx, device=dev)
+        serve = E.make_serve_step(cfg, device=dev)
+        last, caches = prefill(params, tokens[:, :s - 1], ctx_tokens=ctx,
+                               enc_embeds=enc)
+        np.testing.assert_allclose(last.cpu().numpy(),
+                                   full[:, s - 2].cpu().numpy(),
+                                   rtol=2e-3, atol=2e-3, err_msg=arch)
+        nxt, _ = serve(params, caches, tokens[:, s - 1:],
+                       s - 1 + cfg.meta_tokens)
+        assert torch.equal(nxt[:, 0].long(), full[:, s - 1].argmax(-1)), arch
+        out[arch] = float((last - full[:, s - 2]).abs().max())
+    log("smoke configs on the card, decode against prefill (last logits at "
+        "rtol 2e-3 / atol 2e-3, the next token the teacher-forced argmax): "
+        + ", ".join(f"{a} {d:.2e}" for a, d in out.items()))
+    return out
+
+
+def lm_serving(seed, smi):
+    """Phase 10: the LM stack's serving path on the card."""
+    import torch
+    from repro_torch.core.types import resolve_device
+
+    dev = resolve_device(None)
+    log("== phase 10: LM serving (prefill, decode, generate) on the card")
+    log(f"card: {smi}")
+    t_phase = time.perf_counter()
+    e2e = _lm_full(seed, dev)
+    torch.cuda.empty_cache()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    e2e["card_vs_cpu"] = _lm_card_vs_cpu(seed, dev)
+    e2e["smoke_decode_vs_prefill"] = _lm_smoke_archs(seed, dev)
+    e2e["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 10 took {e2e['seconds']:.1f} s")
+    return e2e
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3905,6 +4223,9 @@ def main():
     del rel
     worst = against_plain(args.seed)
     worst_wide, wide_counts, k3_shapes = against_plain_wide(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e10 = lm_serving(args.seed, smi)
     serve_w, refit_w = wide_counts["serve"], wide_counts["refit"]
 
     def at(shape, rec):  # a kernel's record at a wide shape
@@ -4006,7 +4327,7 @@ def main():
         f"phase 5 {json.dumps(e2e5)}; phase 7 {json.dumps(e2e7)}; "
         f"phase 8 {json.dumps(e2e8)}; phase 9 {json.dumps(e2e9)};"
         f" CUDA vs CPU {json.dumps(worst)}; wide CUDA vs CPU "
-        f"{json.dumps(worst_wide)};"
+        f"{json.dumps(worst_wide)}; phase 10 {json.dumps(e2e10)};"
         f" total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

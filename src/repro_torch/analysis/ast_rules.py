@@ -75,6 +75,10 @@ IDLE_KEEP = {
     "repro_torch.aqp.workload": "relation and workload generators (TPC-H "
                                 "SF1 lineitem for chip_smoke.py) shared by "
                                 "the tests, chip_smoke.py and tools/",
+    "repro_torch.configs": "the assigned-architecture registry; its "
+                           "importers in the reference (launch/*) are not "
+                           "ported yet; chip_smoke.py phase 10 and the LM "
+                           "tests",
 }
 
 

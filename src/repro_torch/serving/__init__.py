@@ -2,10 +2,12 @@
 multi-tenant front over it (``repro_torch.serving.front``: admission,
 per-tenant metrics, the JSON wire codec and the HTTP/NDJSON transport).
 
-The reference's ``repro.serving`` also holds the LM stack's decoder
-(``serving/engine.py``); it is not ported yet.
+``repro_torch.serving.engine`` holds the LM stack's serving steps
+(prefill, one-token decode, greedy ``generate``), as the reference's
+``serving/engine.py`` does.
 """
 from repro_torch.serving.aqp import AqpService, Ticket
+from repro_torch.serving.engine import make_prefill_step, make_serve_step
 from repro_torch.serving.front import (
     Rejection,
     ServingFront,
@@ -14,4 +16,4 @@ from repro_torch.serving.front import (
 )
 
 __all__ = ["AqpService", "Rejection", "ServingFront", "TenantSpec", "Ticket",
-           "serve_http"]
+           "make_prefill_step", "make_serve_step", "serve_http"]

@@ -201,7 +201,9 @@ def test_engine_rejects_a_relation_on_another_device():
 
 def test_package_imports_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.core.engine, "
-            "repro_torch.aqp.batch, repro_torch.kernels;"
+            "repro_torch.aqp.batch, repro_torch.kernels, "
+            "repro_torch.serving.engine, repro_torch.models.transformer, "
+            "repro_torch.configs;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")

@@ -50,13 +50,20 @@ Inputs are made from a seed with numpy. Tolerances:
   - launch counts add up when two threads launch K1 at once;
   - the serving front on the card: its miss path bitwise a direct
     session, a shared tenant's hit launching nothing, and over HTTP the
-    execute answer and the NDJSON stream's final line bitwise a twin's.
+    execute answer and the NDJSON stream's final line bitwise a twin's;
+  - the LM serving path, every smoke arch on the card (float32): decode
+    equals prefill (last logits at rtol 2e-3 / atol 2e-3, the next token
+    the teacher-forced argmax); the card against the CPU on the same
+    weights with TF32 off (``forward`` logits at rtol 1e-5 / atol 1e-4,
+    the CPU tests' tolerance against the reference; 4 greedy tokens
+    equal); two runs of ``generate`` give the same tokens.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs as pt_configs  # noqa: E402
 from repro_torch.aqp import executor as pt_exec  # noqa: E402
 from repro_torch.aqp.relation import Relation  # noqa: E402
 from repro_torch.core import types as pt_types  # noqa: E402
@@ -73,6 +80,9 @@ from repro_torch.kernels.range_mask_agg.ref import (  # noqa: E402
 from repro_torch.kernels.se_covariance import ops as pt_se  # noqa: E402
 from repro_torch.kernels.se_covariance.ref import (  # noqa: E402
     se_cov_derivs_ref, se_cov_grad_ref, se_cov_matrix_ref)
+from repro_torch.models import params as pt_lm_params  # noqa: E402
+from repro_torch.models import transformer as pt_lm  # noqa: E402
+from repro_torch.serving import engine as pt_lm_engine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -1430,3 +1440,116 @@ def test_http_answers_are_bitwise_the_card_sessions():
     assert got == want_json
     assert [r["final"] for r in rounds] == [False] * (len(rounds) - 1) + [True]
     assert rounds[-1] == want_json
+
+
+# -------------------------------------------------------------- LM serving
+LM_B, LM_S = 2, 16
+LM_ARCHS = pt_configs.names()
+
+
+def _lm_inputs(cfg, seed):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (LM_B, LM_S)).astype(np.int32)
+    ctx = enc = None
+    if cfg.cross_attn:
+        ctx = rng.normal(size=(LM_B, cfg.cross_attn.n_ctx, cfg.d_model)
+                         ).astype(np.float32)
+    if cfg.enc_dec:
+        enc = rng.normal(size=(LM_B, LM_S, cfg.d_model)).astype(np.float32)
+    return tokens, ctx, enc
+
+
+def _lm_n_ctx(ctx, enc):
+    return ctx.shape[1] if ctx is not None else (
+        LM_S if enc is not None else 0)
+
+
+def _lm_forward(cfg, params, tokens, ctx, enc, dev):
+    tok = torch.as_tensor(tokens, device=dev).long()
+    if cfg.enc_dec:
+        ctx_t = pt_lm.encode(cfg, params, torch.as_tensor(enc, device=dev))
+    else:
+        ctx_t = None if ctx is None else torch.as_tensor(ctx, device=dev)
+    with torch.inference_mode():
+        return pt_lm.forward(cfg, params, tok, ctx_tokens=ctx_t)[0]
+
+
+@pytest.fixture
+def _no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_decode_matches_prefill_on_the_card(arch, _no_tf32):
+    cfg = pt_configs.get_smoke(arch)
+    dev = pt_types.resolve_device(None)
+    params = pt_lm_params.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(1))
+    tokens, ctx, enc = _lm_inputs(cfg, 1)
+    full = _lm_forward(cfg, params, tokens, ctx, enc, dev)
+    prefill = pt_lm_engine.make_prefill_step(
+        cfg, max_len=LM_S + cfg.meta_tokens + 4, n_ctx=_lm_n_ctx(ctx, enc))
+    serve = pt_lm_engine.make_serve_step(cfg)
+    last, caches = prefill(params, tokens[:, :LM_S - 1], ctx_tokens=ctx,
+                           enc_embeds=enc)
+    assert last.device == dev
+    np.testing.assert_allclose(last.cpu().numpy(),
+                               full[:, LM_S - 2].cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)
+    nxt, _ = serve(params, caches, tokens[:, LM_S - 1:],
+                   LM_S - 1 + cfg.meta_tokens)
+    np.testing.assert_array_equal(nxt[:, 0].cpu().numpy(),
+                                  full[:, LM_S - 1].argmax(-1).cpu().numpy())
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_card_matches_cpu_on_the_same_weights(arch, _no_tf32):
+    cfg = pt_configs.get_smoke(arch)
+    dev = pt_types.resolve_device(None)
+    cpu = pt_lm_params.init_params(
+        cfg, generator=torch.Generator().manual_seed(2), device="cpu")
+    card = pt_lm.Decoder(cfg, cpu).to(dev).tree()
+    assert card["embed"].device == dev and cpu["embed"].device.type == "cpu"
+    tokens, ctx, enc = _lm_inputs(cfg, 2)
+    np.testing.assert_allclose(
+        _lm_forward(cfg, card, tokens, ctx, enc, dev).cpu().numpy(),
+        _lm_forward(cfg, cpu, tokens, ctx, enc, "cpu").numpy(),
+        rtol=1e-5, atol=1e-4)
+    got = pt_lm_engine.generate(cfg, card, tokens, 4, ctx_tokens=ctx,
+                                enc_embeds=enc)
+    want = pt_lm_engine.generate(cfg, cpu, tokens, 4, ctx_tokens=ctx,
+                                 enc_embeds=enc, device="cpu")
+    assert got.device == dev
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_lm_router_takes_tied_experts_in_index_order_on_the_card():
+    from repro_torch.models import ffn as pt_lm_ffn
+
+    cfg = pt_configs.get("arctic-480b")  # top-2 of 128, bfloat16
+    dev = pt_types.resolve_device(None)
+    logits = torch.zeros((64, cfg.moe.n_experts), dtype=torch.bfloat16)
+    logits[:, 100:] = 1.0  # 28 tied at the top
+    logits[::2, 7] = 1.0  # and a lower index tied with them
+    gates, idx = pt_lm_ffn._route(cfg, logits.to(dev))
+    want = torch.tensor([[7, 100], [100, 101]]).repeat(32, 1)
+    assert torch.equal(idx.cpu(), want)
+    assert torch.equal(gates.cpu(), torch.full((64, 2), 0.5))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "hymba-1.5b",
+                                  "arctic-480b"])
+def test_lm_generate_twice_gives_the_same_tokens(arch, _no_tf32):
+    cfg = pt_configs.get_smoke(arch)
+    dev = pt_types.resolve_device(None)
+    params = pt_lm_params.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(3))
+    tokens, ctx, enc = _lm_inputs(cfg, 3)
+    runs = [pt_lm_engine.generate(cfg, params, tokens, 8, ctx_tokens=ctx,
+                                  enc_embeds=enc) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
