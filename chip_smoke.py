@@ -85,7 +85,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      against the CPU in float32 on the same weights for qwen2.5-3b,
      rwkv6-3b and hymba-1.5b at full width and cut depth (``forward`` logits and a 16-token ``generate``),
      the chunked RWKV6 and Mamba mixers against their sequential oracles;
-     and decode against prefill for every smoke config.
+     and decode against prefill for every smoke config;
+ 11. the LM stack's training path (plain PyTorch autograd, no kernel of
+     its own): qwen2.5-3b at full width and depth in bf16 with AdamW, a
+     warm-up and three timed steps of 2 x 4 x 512 tokens from the
+     ``TokenPipeline`` (recomputation on, the trainer's cosine schedule),
+     step ms, tokens/s and the shares of the 6NT (``mfu``), 8NT and AdamW
+     bytes bounds, peak memory, then three steps on one fixed batch whose
+     loss must fall; two steps from one state bitwise equal (the cut
+     model in bf16); one AdamW step (and one Adafactor step) on the card
+     against the CPU in float32 at full width and cut depth; every smoke
+     config's accum 2 on [x, x] against accum 1, recomputation on against
+     off; the trainer's crash-and-resume and a bf16 checkpoint on the
+     card.
 The last two lines of standard output are the kernels' JSON record and the
 device record ``{"ok": true, "device": {...}}``.
 """
@@ -4082,9 +4094,10 @@ def _lm_card_vs_cpu(seed, dev):
                                   param_dtype="float32",
                                   compute_dtype="float32")
         t0 = time.perf_counter()
-        cpu = PM.init_params(cfg, generator=torch.Generator().manual_seed(
-            seed), device="cpu")
-        card = T.Decoder(cfg, cpu).to(dev).tree()
+        # drawn on the card (a CPU draw of 0.2-0.5e9 normals takes seconds)
+        card = PM.init_params(cfg, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev)
+        cpu = T.Decoder(cfg, card).to("cpu").tree()
         rng = np.random.default_rng(seed)
         tokens, ctx, enc = _lm_inputs(cfg, rng, LM_CPU_B, LM_CPU_S)
         got = _lm_forward(cfg, card, tokens, ctx, enc, dev).cpu()
@@ -4180,6 +4193,450 @@ def lm_serving(seed, smi):
     return e2e
 
 
+# ------------------------------------------------------------------ phase 11
+TRAIN_B, TRAIN_S, TRAIN_ACCUM = 4, 512, 2  # microbatch rows, tokens, count
+TRAIN_TIMED = 3  # timed steps, after one warm-up step
+TRAIN_LR = 3e-4  # the trainer's default, under cosine_schedule as it sets it
+# The fixed-batch check's constant lr: a bf16 update below half an ulp of
+# its parameter vanishes (an ulp is 2**-8 at 0.5), so 1e-3 leaves most
+# weights (scales 0.01-0.02) moving.
+TRAIN_FIXED_LR = 1e-3
+TRAIN_CPU_LR = 1e-3  # the card against the CPU, float32
+ADAMW_BYTES = 24  # bf16 p, float32 g, m, v read; p, m, v written
+# Card against CPU, one float32 step (TF32 off): the loss (~2,000: the
+# input token's own logit, as in phase 10) within rtol 1e-5 (phase 10's
+# logits part by up to 5.1e-3); grad_norm within rtol 1e-3 (gradients part
+# by ~1e-6 of a leaf's largest value on the CPU against the reference, but
+# hymba's fusion scalars cancel to 6e-5 of theirs); every parameter within
+# TRAIN_STEP_BOUND lr: AdamW's first update of an element is lr * g /
+# (|g| + eps), less than lr whatever g, so two runs part by under 2 lr;
+# Adafactor's is linear in g, but a factored statistic that is itself
+# rounding (the K bias's below) scales its noise up: held at the same 2 lr
+# (its K bias parted by 0.25 lr, chip run, PR 24). Beyond atol 1e-6 /
+# rtol 1e-5 at most 0.1% of all elements and, in a
+# leaf, 3 or a quarter of its elements: an element whose gradient lies
+# within a few eps of 0 takes an update that moves with its last bits; a
+# fault in a leaf moves all of it. The K bias is held to the bound alone:
+# under RoPE's low frequencies it adds nearly the same logit to every key
+# of a query, which the softmax ignores, so most of its gradient cancels
+# to rounding (54 of qwen2.5-3b's 512 elements part under AdamW, 129
+# under Adafactor, whose column statistics then are rounding too).
+TRAIN_F32_LOSS_RTOL = 1e-5
+TRAIN_F32_GNORM_RTOL = 1e-3
+TRAIN_STEP_BOUND = 2.0
+TRAIN_CPU_B, TRAIN_CPU_S = 2, 16
+
+
+def _train_batch(cfg, pipe, shape, dev, rng=None):
+    """The pipeline's next batch as (accum, B, S) tensors on ``dev``, with
+    ctx / enc embeddings where the config takes them."""
+    import torch
+
+    toks, labels = pipe.next_batch()
+    batch = {"tokens": torch.as_tensor(toks.reshape(shape), device=dev).long(),
+             "labels": torch.as_tensor(labels.reshape(shape),
+                                       device=dev).long()}
+    rng = rng or np.random.default_rng(0)
+    if cfg.cross_attn:
+        batch["ctx"] = torch.as_tensor(rng.normal(
+            size=shape[:2] + (cfg.cross_attn.n_ctx, cfg.d_model)).astype(
+            np.float32), device=dev)
+    if cfg.enc_dec:
+        batch["enc"] = torch.as_tensor(rng.normal(
+            size=shape + (cfg.d_model,)).astype(np.float32), device=dev)
+    return batch
+
+
+def _train_full(seed, dev):
+    """qwen2.5-3b at full width and depth in bf16 with AdamW: one warm-up
+    and three timed steps of 2 x 4 x 512 tokens, then three steps on one
+    fixed batch at a constant lr, whose loss must fall."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import roofline
+    from repro_torch.models import params as PM
+    from repro_torch.training import adamw, make_train_step
+    from repro_torch.training.optimizer import cosine_schedule
+
+    cfg = configs.get(LM_ARCH)
+    n = PM.count_params(cfg)
+    assert n == LM_PARAMS, n
+    tokens = TRAIN_ACCUM * TRAIN_B * TRAIN_S
+    shape = (TRAIN_ACCUM, TRAIN_B, TRAIN_S)
+    torch.cuda.reset_peak_memory_stats()
+    params = PM.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    opt = adamw()
+    state = opt.init(params)
+    steps = 1 + TRAIN_TIMED
+    sched = cosine_schedule(TRAIN_LR, warmup=max(steps // 10, 1),
+                            total=steps)
+    step = make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_S,
+                         global_batch=TRAIN_B * TRAIN_ACCUM, seed=seed,
+                         over_factor=1)
+    losses, norms, ms = [], [], []
+    for i in range(steps):
+        batch = _train_batch(cfg, pipe, shape, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, sched(i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), \
+        (losses, norms)
+    step_ms = float(np.median(ms[1:]))
+    peak = torch.cuda.max_memory_allocated()
+    model_flops = roofline.model_flops(cfg, "train", TRAIN_S,
+                                       TRAIN_B * TRAIN_ACCUM)
+    bound_6 = model_flops / roofline.PEAK_FLOPS * 1e3
+    bound_8 = model_flops * 8 / 6 / roofline.PEAK_FLOPS * 1e3
+    bound_adamw = ADAMW_BYTES * n / roofline.HBM_BW * 1e3
+    log(f"{LM_ARCH} train step, bf16 AdamW, accum {TRAIN_ACCUM} x "
+        f"{TRAIN_B} x {TRAIN_S} = {tokens} tokens, recomputation on: "
+        f"warm-up {ms[0]:.3f} ms, timed {', '.join(f'{t:.3f}' for t in ms[1:])}"
+        f" ms: {step_ms:.3f} ms a step (median), "
+        f"{tokens * 1e3 / step_ms:.1f} tokens/s; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}, grad norms "
+        f"{', '.join(f'{x:.4f}' for x in norms)}")
+    log(f"{LM_ARCH} train step against its bounds: mfu {bound_6 / step_ms:.4f}"
+        f" (6 N T = {model_flops:.4e} FLOP / {roofline.PEAK_FLOPS:.3e} FLOP/s"
+        f" = {bound_6:.3f} ms), recomputed-forward share "
+        f"{bound_8 / step_ms:.4f} (8 N T: {bound_8:.3f} ms), AdamW-bytes "
+        f"share {bound_adamw / step_ms:.4f} ({ADAMW_BYTES} x {n} B / "
+        f"{roofline.HBM_BW:.3e} B/s = {bound_adamw:.3f} ms); peak device "
+        f"memory {peak / 1e9:.3f} GB")
+    # three steps on one fixed batch at a constant lr: the loss falls
+    fixed = _train_batch(cfg, pipe, shape, dev)
+    fixed_losses = []
+    for _ in range(3):
+        params, state, m = step(params, state, fixed,
+                                torch.tensor(TRAIN_FIXED_LR))
+        fixed_losses.append(float(m["loss"]))
+    log(f"{LM_ARCH} three steps on one fixed batch at lr {TRAIN_FIXED_LR}: "
+        f"losses {', '.join(f'{x:.4f}' for x in fixed_losses)}")
+    assert all(np.isfinite(fixed_losses)), fixed_losses
+    assert fixed_losses[-1] < fixed_losses[0], fixed_losses
+    del params, state, step
+    return dict(step_ms=step_ms, warmup_ms=ms[0], timed_ms=ms[1:],
+                tokens_per_s=tokens * 1e3 / step_ms, mfu=bound_6 / step_ms,
+                share_8nt=bound_8 / step_ms,
+                share_adamw_bytes=bound_adamw / step_ms,
+                bound_6nt_ms=bound_6, bound_8nt_ms=bound_8,
+                bound_adamw_ms=bound_adamw, peak_gb=peak / 1e9,
+                losses=losses, grad_norms=norms, fixed_losses=fixed_losses)
+
+
+def _clone_tree(tree):
+    from repro_torch.models.params import tree_map
+
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def _tree_diff(a, b):
+    """(largest |a - b| over the leaves, all leaves bitwise equal)."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+
+    worst, same = 0.0, True
+    other = dict(tree_leaves(b))
+    for path, x in tree_leaves(a):
+        y = other[path]
+        same = same and bool(torch.equal(x, y))
+        worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return worst, same
+
+
+def _train_determinism(seed, dev):
+    """Phase 10's cut qwen2.5-3b (full width, 2 layers) in bf16: two steps
+    from the same state on the same batch are bitwise equal."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import params as PM
+    from repro_torch.training import adamw, make_train_step
+
+    cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=LM_CUT[LM_ARCH])
+    params = PM.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    opt = adamw()
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_S,
+                         global_batch=TRAIN_B * TRAIN_ACCUM, seed=seed,
+                         over_factor=1)
+    shape = (TRAIN_ACCUM, TRAIN_B, TRAIN_S)
+    params, state, _ = step(params, state, _train_batch(cfg, pipe, shape,
+                                                        dev),
+                            torch.tensor(TRAIN_FIXED_LR))
+    batch = _train_batch(cfg, pipe, shape, dev)
+    runs = []
+    for _ in range(2):
+        p, s = _clone_tree(params), _clone_tree(state)
+        p, s, m = step(p, s, batch, torch.tensor(TRAIN_FIXED_LR))
+        runs.append((p, s, m))
+    (p1, s1, m1), (p2, s2, m2) = runs
+    p_diff, p_same = _tree_diff(p1, p2)
+    s_diff, s_same = _tree_diff(s1, s2)
+    same_loss = bool(torch.equal(m1["loss"], m2["loss"]))
+    log(f"{LM_ARCH} at full width, {cfg.n_layers} layers, bf16: two steps "
+        f"from one state on one batch: loss {float(m1['loss']):.6f} / "
+        f"{float(m2['loss']):.6f} (bitwise {same_loss}), parameters bitwise "
+        f"{p_same} (largest difference {p_diff:.3e}), optimizer state "
+        f"bitwise {s_same} (largest difference {s_diff:.3e})")
+    assert same_loss and p_same and s_same, (p_diff, s_diff)
+    return dict(bitwise=True)
+
+
+def _hold_step(got, want, lr, what):
+    """Phase 11's rule for the parameters after one step (card against
+    CPU), compared on the card. Returns (largest difference, loose
+    elements, elements)."""
+    from repro_torch.models.params import tree_leaves
+
+    want = dict(tree_leaves(want))
+    worst, n_loose, n = 0.0, 0, 0
+    for path, t in tree_leaves(got):
+        g = t.detach().float()
+        w = want[path].to(g.device).float()
+        d = (g - w).abs()
+        bound = TRAIN_STEP_BOUND * lr + 1e-5 * w.abs()
+        assert bool((d <= bound).all()), (what, path, float(d.max()))
+        loose = int((d > 1e-6 + 1e-5 * w.abs()).sum())
+        assert path.endswith("attn.bk") or \
+            loose <= max(3, 0.25 * d.numel()), (what, path, loose, d.numel())
+        worst, n_loose, n = max(worst, float(d.max())), n_loose + loose, \
+            n + d.numel()
+    assert n_loose <= 1e-3 * n, (what, n_loose, n)
+    return worst, n_loose, n
+
+
+def _train_card_vs_cpu(seed, dev):
+    """Full-width configs at cut depth in float32: one accum-2 step with
+    AdamW (and one with Adafactor on qwen2.5-3b), the same weights and
+    batch on the card and on the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import params as PM
+    from repro_torch.training import adafactor, adamw, make_train_step
+
+    out = {}
+    cases = [(LM_ARCH, "adamw"), (LM_ARCH, "adafactor")] + [
+        (a, "adamw") for a in LM_CUT if a != LM_ARCH]
+    weights = {}
+    for arch, name in cases:
+        depth = LM_CUT[arch]
+        cfg = dataclasses.replace(configs.get(arch), n_layers=depth,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        t0 = time.perf_counter()
+        if arch not in weights:  # drawn on the card, copied to the CPU
+            drawn = PM.init_params(cfg, generator=torch.Generator(
+                device=dev).manual_seed(seed), device=dev)
+            weights = {arch: (drawn, PM.tree_map(lambda t: t.cpu(), drawn))}
+        card, cpu = (_clone_tree(t) for t in weights[arch])
+        shape = (TRAIN_ACCUM, TRAIN_CPU_B, TRAIN_CPU_S)
+        pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_CPU_S,
+                             global_batch=TRAIN_CPU_B * TRAIN_ACCUM,
+                             seed=seed, over_factor=1)
+        batch = _train_batch(cfg, pipe, shape, "cpu")
+        metrics = {}
+        for where, params, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+            opt = adamw() if name == "adamw" else adafactor()
+            step = make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+            b = {k: v.to(d) for k, v in batch.items()}
+            _, _, m = step(params, opt.init(params), b,
+                           torch.tensor(TRAIN_CPU_LR))
+            metrics[where] = {k: float(v) for k, v in m.items()}
+        got, want = metrics["card"], metrics["cpu"]
+        assert np.isfinite(list(got.values())).all(), got
+        np.testing.assert_allclose(got["loss"], want["loss"],
+                                   rtol=TRAIN_F32_LOSS_RTOL, err_msg=arch)
+        np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                                   rtol=TRAIN_F32_GNORM_RTOL, err_msg=arch)
+        worst, loose, total = _hold_step(card, cpu, TRAIN_CPU_LR,
+                                         f"{arch} {name}")
+        log(f"{arch} at full width, {depth} layers, float32, one {name} step"
+            f" (accum {TRAIN_ACCUM} x {TRAIN_CPU_B} x {TRAIN_CPU_S}, lr "
+            f"{TRAIN_CPU_LR}): card against CPU loss {got['loss']:.6f} / "
+            f"{want['loss']:.6f}, grad norm {got['grad_norm']:.6f} / "
+            f"{want['grad_norm']:.6f}; parameters after the step: largest "
+            f"difference {worst:.3e} (bound {TRAIN_STEP_BOUND} lr), "
+            f"{loose} of {total} elements beyond atol 1e-6 / rtol 1e-5 "
+            f"({time.perf_counter() - t0:.1f} s)")
+        out[f"{arch} {name}"] = dict(loss=[got["loss"], want["loss"]],
+                                     grad_norm=[got["grad_norm"],
+                                                want["grad_norm"]],
+                                     param_diff=worst, loose=[loose, total])
+        del cpu, card
+    return out
+
+
+def _smoke_loss_and_grads(cfg, params, batch, remat):
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.losses import lm_loss
+    from repro_torch.training.train_loop import value_and_grad
+
+    loss, grads = value_and_grad(
+        cfg, params, batch, loss_fn=functools.partial(lm_loss, remat=remat))
+    return loss, [g for _, g in tree_leaves(grads)]
+
+
+def _train_smoke_archs(seed, dev):
+    """Every smoke config on the card: accum 2 on [x, x] against accum 1
+    on x, the loss finite and the parameters moving, recomputation on
+    against off."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import params as PM
+    from repro_torch.training import adamw, make_train_step
+
+    out = {}
+    for arch in configs.names():
+        cfg = configs.get_smoke(arch)
+        params = PM.init_params(
+            cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev)
+        pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_CPU_S,
+                             global_batch=TRAIN_CPU_B, seed=seed,
+                             over_factor=1)
+        x = _train_batch(cfg, pipe, (1, TRAIN_CPU_B, TRAIN_CPU_S), dev)
+        runs = {}
+        for accum in (1, 2):
+            p = _clone_tree(params)
+            opt = adamw()
+            b = {k: torch.cat([v] * accum) for k, v in x.items()}
+            p, _, m = make_train_step(cfg, opt, accum=accum)(
+                p, opt.init(p), b, torch.tensor(TRAIN_FIXED_LR))
+            runs[accum] = (p, m)
+        (p1, m1), (p2, m2) = runs[1], runs[2]
+        assert np.isfinite(float(m1["loss"])), arch
+        moved, _ = _tree_diff(p1, params)
+        assert moved > 0, arch
+        diff, same = _tree_diff(p1, p2)
+        # two passes over one microbatch give the same gradient on the
+        # card, and (g + g) / 2 = g exactly: equal within float32 rounding
+        np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
+                                   rtol=1e-6, err_msg=arch)
+        np.testing.assert_allclose(float(m2["grad_norm"]),
+                                   float(m1["grad_norm"]), rtol=1e-6,
+                                   err_msg=arch)
+        assert diff <= 1e-6, (arch, diff)
+        batch = {k: v[0] for k, v in x.items()}
+        l_on, g_on = _smoke_loss_and_grads(cfg, params, batch, True)
+        l_off, g_off = _smoke_loss_and_grads(cfg, params, batch, False)
+        remat_same = bool(torch.equal(l_on, l_off)) and all(
+            bool(torch.equal(a, b)) for a, b in zip(g_on, g_off))
+        remat_diff = max(float((a - b).abs().max())
+                         for a, b in zip(g_on, g_off))
+        assert remat_diff <= 1e-6 * max(float(g.abs().max()) for g in g_on), \
+            (arch, remat_diff)
+        out[arch] = dict(loss=float(m1["loss"]), accum_bitwise=same,
+                         accum_diff=diff, remat_bitwise=remat_same,
+                         remat_diff=remat_diff)
+    log("smoke configs on the card, one AdamW step (lr "
+        f"{TRAIN_FIXED_LR}): accum 2 on [x, x] against accum 1 on x "
+        "(parameters within 1e-6), recomputation on against off (gradients"
+        " within 1e-6 of the largest): " + "; ".join(
+            f"{a} loss {r['loss']:.3f}, accum "
+            f"{'bitwise' if r['accum_bitwise'] else r['accum_diff']}, remat "
+            f"{'bitwise' if r['remat_bitwise'] else r['remat_diff']}"
+            for a, r in out.items()))
+    return out
+
+
+def _train_restart(seed, dev):
+    """The trainer on the card: uninterrupted, and crashed after step 5
+    then resumed, give the same final loss; a bf16 tree with its AdamW
+    state round-trips a checkpoint on the card bit for bit."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.launch import train as TR
+    from repro_torch.models import params as PM
+    from repro_torch.training import adamw
+
+    argv = ["--arch", LM_ARCH, "--smoke", "--steps", "8", "--batch", "2",
+            "--seq", "16", "--accum", "1", "--ckpt-every", "3"]
+    with tempfile.TemporaryDirectory() as d:
+        loss_a = TR.main(argv + ["--ckpt-dir", os.path.join(d, "a")])
+        try:
+            TR.main(argv + ["--ckpt-dir", os.path.join(d, "b"),
+                            "--simulate-failure", "5"])
+            raise AssertionError("--simulate-failure 5 did not stop")
+        except SystemExit as e:
+            assert e.code == 42, e.code
+        loss_b = TR.main(argv + ["--ckpt-dir", os.path.join(d, "b")])
+        log(f"trainer on the card ({LM_ARCH} smoke, 8 steps): uninterrupted "
+            f"final loss {loss_a!r}, crashed after step 5 and resumed "
+            f"{loss_b!r} (bitwise {loss_a == loss_b})")
+        assert loss_a == loss_b, (loss_a, loss_b)
+
+        cfg = dataclasses.replace(configs.get_smoke(LM_ARCH),
+                                  param_dtype="bfloat16")
+        params = PM.init_params(
+            cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev)
+        opt = adamw()
+        state = opt.init(params)
+        state["step"].fill_(3)
+        PM.tree_map(lambda t: t.normal_(), state["m"])
+        mgr = CheckpointManager(os.path.join(d, "bf16"))
+        mgr.save_async(3, (params, state), {"step": 3})
+        mgr.wait()
+        target = (PM.tree_map(torch.zeros_like, params), opt.init(params))
+        (got_p, got_s), _ = mgr.restore(target)
+        _, p_same = _tree_diff(got_p, params)
+        _, s_same = _tree_diff(got_s, state)
+        bits = all(bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
+                   for (_, a), (_, b) in zip(PM.tree_leaves(params),
+                                             PM.tree_leaves(got_p)))
+        ok = bits and p_same and s_same
+        log(f"bf16 checkpoint on the card ({LM_ARCH} smoke parameters in "
+            f"bf16 with an AdamW state): restored bit for bit {ok}")
+        assert ok
+    return dict(loss=loss_a, resumed=loss_b)
+
+
+def lm_training(seed, smi):
+    """Phase 11: the LM stack's training path on the card."""
+    import torch
+    from repro_torch.core.types import resolve_device
+
+    dev = resolve_device(None)
+    log("== phase 11: LM training (loss, AdamW / Adafactor, the train step, "
+        "the trainer) on the card")
+    log(f"card: {smi}")
+    t_phase = time.perf_counter()
+    e2e = _train_full(seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e["determinism"] = _train_determinism(seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    e2e["card_vs_cpu"] = _train_card_vs_cpu(seed, dev)
+    e2e["smoke"] = _train_smoke_archs(seed, dev)
+    e2e["restart"] = _train_restart(seed, dev)
+    e2e["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 11 took {e2e['seconds']:.1f} s")
+    return e2e
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4226,6 +4683,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     e2e10 = lm_serving(args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e11 = lm_training(args.seed, smi)
     serve_w, refit_w = wide_counts["serve"], wide_counts["refit"]
 
     def at(shape, rec):  # a kernel's record at a wide shape
@@ -4328,6 +4788,7 @@ def main():
         f"phase 8 {json.dumps(e2e8)}; phase 9 {json.dumps(e2e9)};"
         f" CUDA vs CPU {json.dumps(worst)}; wide CUDA vs CPU "
         f"{json.dumps(worst_wide)}; phase 10 {json.dumps(e2e10)};"
+        f" phase 11 {json.dumps(e2e11)};"
         f" total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -65,6 +65,7 @@ EPSILON_DEF_SITE = ("kernels/__init__.py",)
 ENTRY_POINTS = {
     "repro_torch.analysis.__main__": "CLI (python -m repro_torch.analysis)",
     "repro_torch.analysis.cli": "CLI implementation module",
+    "repro_torch.launch.train": "CLI (python -m repro_torch.launch.train)",
 }
 # Idle-but-kept: reachable only from the tests, chip_smoke.py or tools/;
 # each entry records WHY it stays.
@@ -75,10 +76,16 @@ IDLE_KEEP = {
     "repro_torch.aqp.workload": "relation and workload generators (TPC-H "
                                 "SF1 lineitem for chip_smoke.py) shared by "
                                 "the tests, chip_smoke.py and tools/",
-    "repro_torch.configs": "the assigned-architecture registry; its "
-                           "importers in the reference (launch/*) are not "
-                           "ported yet; chip_smoke.py phase 10 and the LM "
-                           "tests",
+    "repro_torch.launch": "the package of the trainer's entry point "
+                          "(python -m repro_torch.launch.train) and the "
+                          "roofline terms; nothing imports the package "
+                          "itself",
+    "repro_torch.launch.roofline": "the H100 roofline terms and model "
+                                   "FLOPs; chip_smoke.py phase 11 reads "
+                                   "model_flops; its importers in the "
+                                   "reference (launch/cells.py, "
+                                   "launch/hlo_analysis.py) are not ported "
+                                   "yet",
 }
 
 

@@ -31,6 +31,12 @@ by either package loads in the other. This package is one process (its
   nested dicts of numpy arrays: store snapshots come back that way and the
   loading store re-places each key by its own policy, so a checkpoint
   written under one mesh shape restores onto any other.
+- bfloat16: numpy has no such type, so a bfloat16 leaf is stored as the
+  reference stores it: its bits as numpy's 2-byte void type (``|V2``),
+  with ``"dtype": "bfloat16"`` in the manifest. ``restore`` turns such a
+  leaf back into ``torch.bfloat16`` bit for bit (or, for an array target,
+  into the target's dtype through an exact float32). The reference itself
+  cannot restore these leaves (its ``astype`` has no cast from ``|V2``).
 - A synopsis checkpoint (``VerdictEngine.save_synopses``) holds one
   ``"agg<k>-measure<m>"`` subtree per synopsis and, when the engine has a
   workload-intelligence plane, the reserved ``"intel"`` subtree: one
@@ -96,10 +102,26 @@ def _map(fn, tree, prefix=()):
     return fn(_SEP.join(str(p) for p in prefix), tree)
 
 
+_BF16_BITS = np.dtype("V2")  # a bfloat16 leaf's bits on disk
+
+
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:  # numpy has no bfloat16: its bits
+            return x.view(torch.int16).numpy().view(_BF16_BITS)
+        return x.numpy()
     return np.asarray(x)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    """The manifest's dtype of a host leaf (the reference's names)."""
+    return "bfloat16" if a.dtype == _BF16_BITS else str(a.dtype)
+
+
+def _bf16_tensor(bits: np.ndarray) -> torch.Tensor:
+    """The bfloat16 tensor whose bits a ``|V2`` array holds (a copy)."""
+    return torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
 
 
 class CheckpointManager:
@@ -157,7 +179,7 @@ class CheckpointManager:
             crc = zlib.crc32(f.read())
         manifest = {
             "step": step,
-            "keys": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+            "keys": {k: {"shape": list(v.shape), "dtype": _dtype_name(v)}
                      for k, v in flat.items()},
             "extra": extra,
             "n_processes": 1,
@@ -250,6 +272,10 @@ class CheckpointManager:
         This is how state whose shapes are unknown before restore comes back
         — the synopsis snapshots (``VerdictEngine.load_synopses``), whose
         row counts are a property of what past sessions learned.
+
+        A bfloat16 leaf comes back as stored: its bits, a ``|V2`` array
+        (``torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)`` is
+        the tensor).
         """
         data, manifest = self._read_step(step)
         tree: dict = {}
@@ -266,7 +292,8 @@ class CheckpointManager:
 
         A tensor leaf of ``target`` comes back as a tensor on that leaf's
         device with its dtype; an array leaf as an array of its dtype; any
-        other leaf as the stored array.
+        other leaf as the stored array. A stored bfloat16 leaf (``|V2``
+        bits) becomes a bfloat16 tensor bit for bit before it is cast.
         """
         data, manifest = self._read_step(step)
         missing = set(_flatten(target)) - set(data)
@@ -275,8 +302,13 @@ class CheckpointManager:
 
         def place(key, leaf):
             arr = data[key]
+            bf16 = manifest["keys"].get(key, {}).get("dtype") == "bfloat16" \
+                and arr.dtype == _BF16_BITS
             if isinstance(leaf, torch.Tensor):
-                return torch.as_tensor(arr, device=leaf.device).to(leaf.dtype)
+                t = _bf16_tensor(arr) if bf16 else torch.as_tensor(arr)
+                return t.to(device=leaf.device, dtype=leaf.dtype)
+            if bf16:
+                arr = _bf16_tensor(arr).float().numpy()
             if isinstance(leaf, np.ndarray):
                 return arr.astype(leaf.dtype)
             return arr

@@ -274,3 +274,58 @@ def count_params(cfg: ArchConfig) -> int:
     for _, p in tree_leaves(param_specs(cfg)):
         total += int(np.prod(p.shape)) if p.shape else 1
     return total
+
+
+def opt_state_from_jax(cfg: ArchConfig, state, *, device=None):
+    """The reference's optimizer state for ``cfg``'s parameters (``adamw``:
+    ``{"m", "v", "step"}``; ``adafactor``: ``{"v": {... {"vr", "vc"} |
+    {"v"}}, "step"}``), its leaves as numpy arrays, as the port's: float32
+    tensors on ``device`` (the card unless ``device="cpu"``) in the
+    parameters' tree layout, leaf for leaf, and ``step`` an int32 0-dim
+    tensor."""
+    dev = resolve_device(device)
+    specs = _paths(param_specs(cfg))
+
+    def carry(a, shape, path):
+        a = np.asarray(a)
+        if a.shape != tuple(shape):
+            raise ValueError(f"optimizer state {path!r}: shape {a.shape}, "
+                             f"expected {tuple(shape)}")
+        return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+    def moment(tree):
+        got = dict(tree_leaves(tree))
+
+        def one(leaf):
+            path, p = leaf
+            return carry(got.pop(path), p.shape, path)
+
+        out = tree_map(one, specs)
+        if got:
+            raise KeyError(f"state leaves not in the config's tree: "
+                           f"{sorted(got)}")
+        return out
+
+    def factored(tree):
+        got = dict(tree_leaves(tree))
+
+        def one(leaf):
+            path, p = leaf
+            if len(p.shape) >= 2:
+                return {"vr": carry(got.pop(f"{path}.vr"), p.shape[:-1], path),
+                        "vc": carry(got.pop(f"{path}.vc"),
+                                    p.shape[:-2] + p.shape[-1:], path)}
+            return {"v": carry(got.pop(f"{path}.v"), p.shape, path)}
+
+        out = tree_map(one, specs)
+        if got:
+            raise KeyError(f"state leaves not in the config's tree: "
+                           f"{sorted(got)}")
+        return out
+
+    step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                        device=dev)
+    if "m" in state:  # adamw
+        return {"m": moment(state["m"]), "v": moment(state["v"]),
+                "step": step}
+    return {"v": factored(state["v"]), "step": step}

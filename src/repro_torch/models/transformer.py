@@ -10,10 +10,16 @@ axis, and the port loops over that axis (the reference scans it).
 Caches are written in place: every layer of a stacked group has storage of
 its own (``init_cache`` allocates ``(repeat, ...)`` tensors, never a
 broadcast view), and a layer updates its slot through a view of it.
+
+In "train" mode under autograd each unit of a group (one layer index: its
+sub-layers together) runs under ``torch.utils.checkpoint``: its
+activations are recomputed in the backward, the reference's per-layer
+``jax.checkpoint``. ``remat=False`` keeps them instead.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention as A
@@ -143,20 +149,45 @@ def _layer(tree, i):
     return tree_map(lambda t: t[i], tree)
 
 
+def _unstack(tree, n):
+    """A stacked group's tree as ``n`` per-layer trees of views, from one
+    ``unbind`` a leaf: under autograd its backward stacks the layers'
+    gradients once, where a select a layer would give each layer a
+    gradient of the whole stacked leaf, zeros but its slice, and add the
+    ``n`` of them."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
+
+
+def _unit_fwd(cfg, unit, lp, x, positions, *, mode, lc, pos, ctx_tokens):
+    for i, spec in enumerate(unit):
+        x = layer_fwd(cfg, spec, lp[f"sub{i}"], x, positions, mode=mode,
+                      cache=lc[f"sub{i}"] if lc else None, pos=pos,
+                      ctx_tokens=ctx_tokens)
+    return x
+
+
 def groups_fwd(cfg, groups_params, plan, x, positions, *, mode="train",
-               caches=None, pos=None, ctx_tokens=None):
+               caches=None, pos=None, ctx_tokens=None, remat=True):
     """Run all layer groups, layer by layer over each group's stacked axis.
-    Returns x; caches, when given, are written in place."""
+    Returns x; caches, when given, are written in place. In "train" mode
+    under autograd with ``remat``, each unit is recomputed in the
+    backward."""
+    recompute = remat and mode == "train" and torch.is_grad_enabled()
     for gi, ((unit, repeat), gp) in enumerate(zip(plan, groups_params)):
         cache_g = caches[gi] if caches is not None else None
+        layers = [gp] if repeat == 1 else _unstack(gp, repeat)
         for li in range(repeat):
-            lp = gp if repeat == 1 else _layer(gp, li)
+            lp = layers[li]
             lc = cache_g if repeat == 1 or cache_g is None \
                 else _layer(cache_g, li)
-            for i, spec in enumerate(unit):
-                x = layer_fwd(cfg, spec, lp[f"sub{i}"], x, positions,
-                              mode=mode, cache=lc[f"sub{i}"] if lc else None,
-                              pos=pos, ctx_tokens=ctx_tokens)
+            kw = dict(mode=mode, lc=lc, pos=pos, ctx_tokens=ctx_tokens)
+            if recompute:  # no RNG in a layer: no RNG state to keep
+                x = torch.utils.checkpoint.checkpoint(
+                    _unit_fwd, cfg, unit, lp, x, positions, **kw,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _unit_fwd(cfg, unit, lp, x, positions, **kw)
     return x
 
 
@@ -200,13 +231,15 @@ def _dec(cfg, params):
 
 
 def forward(cfg: ArchConfig, params, tokens, sctx: ShardCtx = ShardCtx(), *,
-            ctx_tokens=None, mode="train", caches=None, pos=None):
+            ctx_tokens=None, mode="train", caches=None, pos=None,
+            remat=True):
     """Decoder forward. tokens: (B,S) integer tensor (decode: (B,1), with
     ``pos`` the absolute position, an int).
 
     ctx_tokens: VLM patch embeddings (B,N,d) or enc-dec encoder output.
     Returns (logits, caches): in "prefill" and "decode" modes ``caches``
-    (from ``init_cache``) are written in place and returned.
+    (from ``init_cache``) are written in place and returned. ``remat``:
+    recompute each layer in the backward ("train" mode under autograd).
     """
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
@@ -222,20 +255,21 @@ def forward(cfg: ArchConfig, params, tokens, sctx: ShardCtx = ShardCtx(), *,
     if mode != "decode":
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     x = groups_fwd(cfg, groups, plan, x, positions, mode=mode, caches=caches,
-                   pos=pos, ctx_tokens=ctx_tokens)
+                   pos=pos, ctx_tokens=ctx_tokens, remat=remat)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     if cfg.meta_tokens and mode != "decode":
         x = x[:, cfg.meta_tokens:]
     return unembed(cfg, params, x), caches
 
 
-def encode(cfg: ArchConfig, params, enc_embeds, sctx: ShardCtx = ShardCtx()):
+def encode(cfg: ArchConfig, params, enc_embeds, sctx: ShardCtx = ShardCtx(),
+           *, remat=True):
     """Enc-dec encoder over precomputed frame embeddings (B,S,d)."""
     b, s, _ = enc_embeds.shape
     positions = torch.arange(s, device=enc_embeds.device)[None].expand(b, s)
     x = enc_embeds.to(torch_dtype(cfg.compute_dtype))
     x = groups_fwd(cfg, params["enc_groups"], cfg.encoder_plan(), x,
-                   positions, mode="train")
+                   positions, mode="train", remat=remat)
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 

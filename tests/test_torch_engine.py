@@ -203,7 +203,9 @@ def test_package_imports_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.core.engine, "
             "repro_torch.aqp.batch, repro_torch.kernels, "
             "repro_torch.serving.engine, repro_torch.models.transformer, "
-            "repro_torch.configs;"
+            "repro_torch.configs, repro_torch.training, "
+            "repro_torch.launch.train, repro_torch.launch.roofline, "
+            "repro_torch.data.pipeline;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")

@@ -56,7 +56,17 @@ Inputs are made from a seed with numpy. Tolerances:
     the teacher-forced argmax); the card against the CPU on the same
     weights with TF32 off (``forward`` logits at rtol 1e-5 / atol 1e-4,
     the CPU tests' tolerance against the reference; 4 greedy tokens
-    equal); two runs of ``generate`` give the same tokens.
+    equal); two runs of ``generate`` give the same tokens;
+  - the LM training path on the card (float32, TF32 off): one AdamW train
+    step on a smoke config against the same step on the CPU (the loss at
+    rtol 1e-5, ``grad_norm`` at rtol 1e-4, every parameter within 2 lr,
+    the bound of two first AdamW updates, and at most 1% of the elements
+    beyond atol 1e-6 / rtol 1e-5: an element whose gradient lies within a
+    few eps of 0 takes an update that moves with the gradient's last
+    bits); recomputation on against off and accum 2 on [x, x] against
+    accum 1 on x, within float32 rounding (1e-6); the trainer's
+    crash-and-resume gives the uninterrupted run's final loss bitwise; a
+    bf16 tree with its AdamW state round-trips a checkpoint bit for bit.
 """
 import numpy as np
 import pytest
@@ -1553,3 +1563,152 @@ def test_lm_generate_twice_gives_the_same_tokens(arch, _no_tf32):
     runs = [pt_lm_engine.generate(cfg, params, tokens, 8, ctx_tokens=ctx,
                                   enc_embeds=enc) for _ in range(2)]
     assert torch.equal(runs[0], runs[1])
+
+
+# ------------------------------------------------------------- LM training
+TRAIN_ARCHS = ["qwen2.5-3b", "llama4-maverick-400b-a17b", "rwkv6-3b",
+               "hymba-1.5b", "seamless-m4t-medium",
+               "llama-3.2-vision-11b"]
+TRAIN_LR = 1e-3
+
+
+def _train_batch(cfg, accum, seed, dev):
+    """(accum, B, S) tokens, labels from a random continuation, ctx / enc
+    where the config takes them."""
+    from repro_torch.data.pipeline import TokenPipeline
+
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=LM_S,
+                         global_batch=LM_B * accum, seed=seed, over_factor=1)
+    toks, labels = pipe.next_batch()
+    shape = (accum, LM_B, LM_S)
+    b = {"tokens": torch.as_tensor(toks.reshape(shape), device=dev).long(),
+         "labels": torch.as_tensor(labels.reshape(shape), device=dev).long()}
+    rng = np.random.default_rng(seed)
+    if cfg.cross_attn:
+        b["ctx"] = torch.as_tensor(rng.normal(
+            size=shape[:2] + (cfg.cross_attn.n_ctx, cfg.d_model)).astype(
+            np.float32), device=dev)
+    if cfg.enc_dec:
+        b["enc"] = torch.as_tensor(rng.normal(size=shape + (cfg.d_model,))
+                                   .astype(np.float32), device=dev)
+    return b
+
+
+def _train_once(cfg, params, batch, accum=2):
+    from repro_torch.training import adamw, make_train_step
+
+    opt = adamw()
+    return make_train_step(cfg, opt, accum=accum)(
+        params, opt.init(params), batch, torch.tensor(TRAIN_LR))
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_lm_train_step_card_matches_cpu(arch, _no_tf32):
+    cfg = pt_configs.get_smoke(arch)
+    dev = pt_types.resolve_device(None)
+    cpu = pt_lm_params.init_params(
+        cfg, generator=torch.Generator().manual_seed(4), device="cpu")
+    card = pt_lm_params.tree_map(lambda t: t.to(dev, copy=True), cpu)
+    batch = _train_batch(cfg, 2, 4, "cpu")
+    card, _, got = _train_once(cfg, card, {k: v.to(dev)
+                                           for k, v in batch.items()})
+    cpu, _, want = _train_once(cfg, cpu, batch)
+    assert got["loss"].device == dev
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(got["grad_norm"]),
+                               float(want["grad_norm"]), rtol=1e-4)
+    want_p = dict(pt_lm_params.tree_leaves(cpu))
+    for path, t in pt_lm_params.tree_leaves(card):
+        g, w = t.cpu().numpy(), want_p[path].numpy()
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=2 * TRAIN_LR,
+                                   err_msg=path)
+        loose = np.abs(g - w) > 1e-6 + 1e-5 * np.abs(w)
+        assert loose.sum() <= max(3, 0.01 * g.size), (path, loose.sum())
+
+
+def _loss_and_grads(cfg, params, batch, remat):
+    import functools
+
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.losses import lm_loss
+    from repro_torch.training.train_loop import value_and_grad
+
+    loss, grads = value_and_grad(
+        cfg, params, batch, loss_fn=functools.partial(lm_loss, remat=remat))
+    return loss, [g for _, g in tree_leaves(grads)]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_lm_recomputation_on_matches_off_on_the_card(arch, _no_tf32):
+    cfg = pt_configs.get_smoke(arch)
+    dev = pt_types.resolve_device(None)
+    params = pt_lm_params.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(5))
+    batch = {k: v[0] for k, v in _train_batch(cfg, 1, 5, dev).items()}
+    l_on, g_on = _loss_and_grads(cfg, params, batch, True)
+    l_off, g_off = _loss_and_grads(cfg, params, batch, False)
+    np.testing.assert_allclose(float(l_on), float(l_off), rtol=1e-6)
+    for a, b in zip(g_on, g_off):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-6 * max(scale, 1e-30)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_lm_accum_two_of_the_same_batch_is_accum_one_on_the_card(
+        arch, _no_tf32):
+    cfg = pt_configs.get_smoke(arch)
+    dev = pt_types.resolve_device(None)
+    params = pt_lm_params.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(6))
+    x = _train_batch(cfg, 1, 6, dev)
+    clone = lambda: pt_lm_params.tree_map(torch.clone, params)  # noqa: E731
+    p1, _, m1 = _train_once(cfg, clone(), x, accum=1)
+    p2, _, m2 = _train_once(cfg, clone(), {k: torch.cat([v, v])
+                                           for k, v in x.items()}, accum=2)
+    assert np.isfinite(float(m1["loss"]))
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
+                               rtol=1e-6)
+    other = dict(pt_lm_params.tree_leaves(p2))
+    moved = False
+    for path, t in pt_lm_params.tree_leaves(p1):
+        assert float((t - other[path]).abs().max()) <= 1e-6, path
+        moved = moved or not torch.equal(
+            t, dict(pt_lm_params.tree_leaves(params))[path])
+    assert moved
+
+
+def test_lm_trainer_resumes_to_the_uninterrupted_loss_on_the_card(tmp_path):
+    from repro_torch.launch import train as TR
+
+    argv = ["--arch", "qwen2.5-3b", "--smoke", "--steps", "8", "--batch",
+            "2", "--seq", "16", "--accum", "1", "--ckpt-every", "3"]
+    loss_a = TR.main(argv + ["--ckpt-dir", str(tmp_path / "a")])
+    with pytest.raises(SystemExit):
+        TR.main(argv + ["--ckpt-dir", str(tmp_path / "b"),
+                        "--simulate-failure", "5"])
+    assert TR.main(argv + ["--ckpt-dir", str(tmp_path / "b")]) == loss_a
+
+
+def test_lm_bf16_checkpoint_round_trips_on_the_card(tmp_path):
+    import dataclasses
+
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.training import adamw
+
+    cfg = dataclasses.replace(pt_configs.get_smoke("qwen2.5-3b"),
+                              param_dtype="bfloat16")
+    dev = pt_types.resolve_device(None)
+    params = pt_lm_params.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(7))
+    opt = adamw()
+    state = opt.init(params)
+    pt_lm_params.tree_map(lambda t: t.normal_(), state["v"])
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, (params, state))
+    (got_p, got_s), _ = mgr.restore(
+        (pt_lm_params.tree_map(torch.zeros_like, params), opt.init(params)))
+    for (path, a), (_, b) in zip(pt_lm_params.tree_leaves([params, state]),
+                                 pt_lm_params.tree_leaves([got_p, got_s])):
+        assert b.device == dev and b.dtype == a.dtype, path
+        assert torch.equal(a, b), path
