@@ -97,7 +97,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      against the CPU in float32 at full width and cut depth; every smoke
      config's accum 2 on [x, x] against accum 1, recomputation on against
      off; the trainer's crash-and-resume and a bf16 checkpoint on the
-     card.
+     card;
+ 12. the static checker's trace layer (``repro_torch.analysis``, T001-T007)
+     on the card: ``run_trace_rules(device="cuda")`` over the nine
+     scan-plane programs and the improve ladder with no gating finding;
+     T005 on the fused scan at the main path's block (T = 60,013) at Q =
+     128 and 4096: no (T, Q) tensor and a peak memory delta below T * Q * 8
+     bytes, printed, with the plain scan under the ``fused`` tag flagged as
+     the negative control; T007 keyed by K2's plan from the built library;
+     T003 over a four-shard mesh on the one card; K1, K4 and K2 launched
+     during the phase, and its seconds.
 The last two lines of standard output are the kernels' JSON record and the
 device record ``{"ok": true, "device": {...}}``.
 """
@@ -4637,6 +4646,103 @@ def lm_training(seed, smi):
     return e2e
 
 
+# ----------------------------------------------------------------- phase 12
+TRACE_Q = (128, 4096)  # T005's snippet counts at the main path's block
+
+
+def trace_layer(seed, smi):
+    """Phase 12: the static checker's trace layer on the card."""
+    from repro_torch.analysis.findings import ERROR, gate_count, render_text
+    from repro_torch.analysis.programs import Program, sharded_mask_program
+    from repro_torch.analysis.trace_rules import (
+        check_improve_cache_cardinality, check_mask_build_collectives,
+        check_no_tq_buffer, check_scan_launch_cache, cross_shard_ops,
+        run_trace_rules)
+    from repro_torch.aqp.executor import eval_partials
+    from repro_torch.aqp.workload import tpch_like
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.fused_masked_scan import ops as fms
+
+    log("== phase 12: the static checker's trace layer (T001-T007) on the "
+        "card")
+    log(f"card: {smi}")
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    found = run_trace_rules(device="cuda")
+    out = {"rules_s": time.perf_counter() - t_phase}
+    log(f"run_trace_rules(device='cuda') in {out['rules_s']:.2f} s:\n"
+        f"{render_text(found)}")
+    assert gate_count(found, strict=True) == 0, render_text(found)
+
+    # T005 at the main path's shape: a block of an SF1 sample batch's size
+    # (drawn as phase 2 draws K4's), the fused scan at Q = 128 and 4096.
+    rel = tpch_like(seed, n_rows=600_000)
+    rows = np.random.default_rng(seed + 7).permutation(rel.cardinality)
+    blk = rel.take(rows[:SF1_BATCH_T])
+    block = (blk.num_normalized, blk.cat, blk.measures)
+    t_n = SF1_BATCH_T
+    for q_n in TRACE_Q:
+        s = _fused_snippets(rel, seed, 2000, q_n).to(rel.device)
+        fused = Program("eval_partials_fused", fms.eval_partials_fused,
+                        (*block, s), frozenset({"fused"}), t=t_n, q=q_n,
+                        device=rel.device)
+        bad = check_no_tq_buffer(fused)
+        assert bad == [], render_text(bad)
+        trace = fused.trace()
+        limit = t_n * q_n * 8
+        assert trace.peak_bytes < limit, (trace.peak_bytes, limit)
+        assert trace.launches.get("fused_masked_scan", 0) > 0, trace.launches
+        biggest = max((o.shape for r in trace.records for o in r.outputs),
+                      key=lambda shp: int(np.prod(shp)))
+        log(f"  T005 eval_partials_fused T={t_n} Q={q_n}: no (T, Q) tensor "
+            f"(largest created {biggest}), peak memory delta "
+            f"{trace.peak_bytes} B < T*Q*8 = {limit} B "
+            f"({trace.peak_bytes / limit:.6f} of it), {len(trace.records)} "
+            f"aten ops, launches {trace.launches}")
+        out[f"t005_peak_bytes_q{q_n}"] = trace.peak_bytes
+        out[f"t005_limit_bytes_q{q_n}"] = limit
+    # The negative control: the plain scan under the fused tag, same block.
+    q_n = TRACE_Q[0]
+    s = _fused_snippets(rel, seed, 2000, q_n).to(rel.device)
+    plain = Program("eval_partials_as_fused", eval_partials, (*block, s),
+                    frozenset({"fused"}), t=t_n, q=q_n, device=rel.device)
+    flagged = check_no_tq_buffer(plain)
+    assert [(f.rule, f.severity) for f in flagged] == [("T005", ERROR)] * 2, (
+        render_text(flagged))
+    out["control_peak_bytes"] = plain.trace().peak_bytes
+    log(f"  T005 negative control, eval_partials tagged fused T={t_n} "
+        f"Q={q_n}: flagged (a (T, Q) tensor and the memory), peak memory "
+        f"delta {out['control_peak_bytes']} B")
+    del rel, blk, block, s, fused, plain
+
+    # T007 keyed by K2's plan from the built library; K1's by shape.
+    before = launch_counts()["gp_batch_infer"]
+    assert check_improve_cache_cardinality(device="cuda") == []
+    assert check_scan_launch_cache(device="cuda") == []
+    log("  T007: the 4 x 4 (Q, fill) ladder gave one K2 signature (shapes "
+        "and the built library's gp_plan) per bucket pair over "
+        f"{launch_counts()['gp_batch_infer'] - before} K2 launches; K1's "
+        "launch keyed by shape alone")
+    # T003 over a four-shard mesh on the one card.
+    p = sharded_mask_program("cuda", n_shards=N_SHARDS)
+    assert len(set(p.trace().shards.values())) == N_SHARDS
+    assert check_mask_build_collectives(p) == []
+    assert not cross_shard_ops(p.trace())
+    log(f"  T003: sharded_mask_build over {N_SHARDS} shards of the card "
+        f"(T={p.t}): {len(p.trace().shards)} shard slices labelled, no "
+        "cross-shard op")
+    counts = launch_counts()
+    log(f"  launches during phase 12: {counts}")
+    out["launches"] = {k: counts[k] for k in ("fused_masked_scan",
+                                              "masked_partials",
+                                              "gp_batch_infer")}
+    for k, n in out["launches"].items():
+        assert n > 0, (k, counts)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4686,6 +4792,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     e2e11 = lm_training(args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e12 = trace_layer(args.seed, smi)
     serve_w, refit_w = wide_counts["serve"], wide_counts["refit"]
 
     def at(shape, rec):  # a kernel's record at a wide shape
@@ -4788,7 +4897,7 @@ def main():
         f"phase 8 {json.dumps(e2e8)}; phase 9 {json.dumps(e2e9)};"
         f" CUDA vs CPU {json.dumps(worst)}; wide CUDA vs CPU "
         f"{json.dumps(worst_wide)}; phase 10 {json.dumps(e2e10)};"
-        f" phase 11 {json.dumps(e2e11)};"
+        f" phase 11 {json.dumps(e2e11)}; phase 12 {json.dumps(e2e12)};"
         f" total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -12,9 +12,10 @@ from the reference, never its trace layer.
 The port's clock/RNG detector takes torch's RNG in place of
 ``jax.random``: fixtures written into ``tmp_path`` (a kernel file, an
 intel file, a front decision module) use it, and each is flagged by
-exactly its rule. The port's own tree is clean under ``--strict``, its
-inventory entries each carry their reason, and the CLI refuses the trace
-layer, which is not ported.
+exactly its rule. The port's own tree is clean under ``--strict`` (both
+layers, the trace layer on the CPU), its inventory entries each carry their
+reason, and the CLI runs the AST layer alone; the trace layer and its CLI
+are held in ``tests/test_torch_trace.py``.
 """
 import json
 import pathlib
@@ -206,7 +207,7 @@ def test_torch_use_without_rng_is_clean(tmp_path):
 
 @pytest.fixture(scope="module")
 def repo_findings():
-    return run_repo_analysis()
+    return run_repo_analysis(device="cpu")
 
 
 def test_repo_is_clean_under_strict_gate(repo_findings):
@@ -246,12 +247,3 @@ def test_cli_json_format(capsys):
     assert rc == 0
     data = json.loads(capsys.readouterr().out)
     assert data and all(d["rule"] == "A005" for d in data)
-
-
-def test_cli_refuses_the_trace_layer(capsys):
-    with pytest.raises(SystemExit) as e:
-        main(["--layer", "trace"])
-    assert e.value.code == 2
-    assert "ROADMAP Queue 1" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="not ported"):
-        run_repo_analysis(layers=("trace",))

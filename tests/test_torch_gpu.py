@@ -66,7 +66,14 @@ Inputs are made from a seed with numpy. Tolerances:
     bits); recomputation on against off and accum 2 on [x, x] against
     accum 1 on x, within float32 rounding (1e-6); the trainer's
     crash-and-resume gives the uninterrupted run's final loss bitwise; a
-    bf16 tree with its AdamW state round-trips a checkpoint bit for bit.
+    bf16 tree with its AdamW state round-trips a checkpoint bit for bit;
+  - the static checker's trace layer on the card: no gating finding over
+    the nine programs (K1, K4 and K2 launched under it); the fused scan
+    creates no (T, Q) tensor and its peak memory stays below T * Q * 8
+    bytes, where the plain scan under the ``fused`` tag is flagged; the
+    improve ladder gives one K2 launch signature (with the built library's
+    ``gp_plan``) per bucket pair; the mask build over 4 and 8 shards of the
+    card has no cross-shard op.
 """
 import numpy as np
 import pytest
@@ -1712,3 +1719,83 @@ def test_lm_bf16_checkpoint_round_trips_on_the_card(tmp_path):
                                  pt_lm_params.tree_leaves([got_p, got_s])):
         assert b.device == dev and b.dtype == a.dtype, path
         assert torch.equal(a, b), path
+
+
+# ------------------------------------------- the static checker's trace layer
+def test_trace_layer_is_clean_on_the_card():
+    """T001-T007 over the nine programs and the improve ladder on the card:
+    no gating finding, and K1, K4 and K2 ran under them."""
+    from repro_torch.analysis.findings import INFO, gate_count, render_text
+    from repro_torch.analysis.trace_rules import run_trace_rules
+    from repro_torch.kernels import reset_launch_counts
+
+    reset_launch_counts()
+    found = run_trace_rules(device="cuda")
+    counts = launch_counts()
+    assert gate_count(found, strict=True) == 0, render_text(found)
+    # the fused programs fold inside K1 and K4, noted as info
+    assert {(f.rule, f.location) for f in found if f.severity == INFO} == {
+        ("T001", "program:eval_partials_fused"),
+        ("T001", "program:masked_partials_fused")}
+    for k in ("fused_masked_scan", "masked_partials", "gp_batch_infer"):
+        assert counts[k] > 0, counts
+
+
+@pytest.mark.parametrize("t_n,q_n", [(20_000, 128), (20_000, 1024)])
+def test_t005_memory_delta_on_k1_stays_below_the_mask(t_n, q_n):
+    """The fused scan on the card creates no (T, Q) tensor and peaks below
+    T * Q * 8 bytes; the plain scan under the ``fused`` tag is flagged."""
+    from repro_torch.analysis.programs import Program
+    from repro_torch.analysis.trace_rules import check_no_tq_buffer
+
+    _, num, cat, meas, snips = _block(t_n, seed=3, q_n=q_n)
+    fused = Program("eval_partials_fused", pt_fms.eval_partials_fused,
+                    (num, cat, meas, snips), frozenset({"fused"}), t=t_n,
+                    q=q_n, device=num.device)
+    assert check_no_tq_buffer(fused) == []
+    trace = fused.trace()
+    assert 0 < trace.peak_bytes < t_n * q_n * 8
+    assert trace.launches["fused_masked_scan"] >= 1
+    plain = Program("oracle_as_fused", pt_exec.eval_partials,
+                    (num, cat, meas, snips), frozenset({"fused"}), t=t_n,
+                    q=q_n, device=num.device)
+    found = check_no_tq_buffer(plain)
+    assert [f.rule for f in found] == ["T005", "T005"]  # shapes and memory
+    assert plain.trace().peak_bytes >= t_n * q_n * 8
+
+
+def test_t007_reads_k2_plans_of_the_built_library():
+    """The improve ladder on the card: one K2 launch signature (shapes and
+    the library's ``gp_plan``) per (Q, fill) bucket pair; K1's launch keyed
+    by shape alone."""
+    from repro_torch.analysis.programs import CallTap
+    from repro_torch.analysis.trace_rules import (
+        check_improve_cache_cardinality, check_scan_launch_cache,
+        gp_signature)
+    from repro_torch.kernels import reset_launch_counts
+
+    reset_launch_counts()
+    assert check_improve_cache_cardinality(device="cuda") == []
+    assert launch_counts()["gp_batch_infer"] == 16
+    assert check_scan_launch_cache(device="cuda") == []
+    k = torch.zeros((8, 16), dtype=torch.float64, device="cuda")
+    with CallTap(pt_gp.gp_batch_infer) as tap:
+        pt_gp.gp_batch_infer(k, torch.eye(16, dtype=torch.float64,
+                                          device="cuda"),
+                             *(torch.ones(n, dtype=torch.float64,
+                                          device="cuda")
+                               for n in (16, 8, 8, 8, 8)), live=13)
+    sig = gp_signature(tap.calls[0][1])
+    assert sig[-1] == pt_gp.gp_plan_of_library(8, 16, 13)
+
+
+@pytest.mark.parametrize("n_shards", [4, 8])
+def test_t003_mask_build_is_shard_local_on_the_card(n_shards):
+    from repro_torch.analysis.programs import sharded_mask_program
+    from repro_torch.analysis.trace_rules import (
+        check_mask_build_collectives, cross_shard_ops)
+
+    p = sharded_mask_program("cuda", n_shards=n_shards)
+    assert len(set(p.trace().shards.values())) == n_shards
+    assert check_mask_build_collectives(p) == []
+    assert cross_shard_ops(p.trace()) == []
