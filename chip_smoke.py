@@ -106,7 +106,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      bytes, printed, with the plain scan under the ``fused`` tag flagged as
      the negative control; T007 keyed by K2's plan from the built library;
      T003 over a four-shard mesh on the one card; K1, K4 and K2 launched
-     during the phase, and its seconds.
+     during the phase, and its seconds;
+ 13. the distributed layer (plain PyTorch, no kernel of its own): one
+     arctic-480b MoE layer at full width (26.8 GB of bf16 experts) at its
+     capacity factor over (data 2, model 2) and (data 1, model 4) meshes of
+     the card, held against each batch shard's single-device MoE and run
+     twice bitwise, timed, with peak memory; qwen2.5-3b's compressed train
+     step at full width and depth over (pod 2, data 1, model 1): every
+     payload crossing between pods int8 (a float32 scale a leaf), the mean
+     the optimizer gets within the int8 bound of the exact mean of the
+     pods' float32 gradients, the loss the pods' mean, step time, bytes
+     exchanged and peak memory; qwen2.5-3b's parameters and AdamW state
+     (full width, cut depth) placed under FSDP_RULES on (data 4, model 1),
+     through a checkpoint and resharded onto (data 2, model 1), bitwise.
 The last two lines of standard output are the kernels' JSON record and the
 device record ``{"ok": true, "device": {...}}``.
 """
@@ -4743,6 +4755,350 @@ def trace_layer(seed, smi):
     return out
 
 
+# ----------------------------------------------------------------- phase 13
+MOE_ARCH = "arctic-480b"  # one MoE layer at full width: 26.8 GB of experts
+MOE_B, MOE_S = 2, 512  # tokens of the MoE layer's input
+MOE_MESHES = ((2, 2), (1, 4))  # (data, model) over four positions of the card
+MOE_RMS_ATOL = 2.0 ** -5  # tests/test_torch_lm_bf16.py's MoE tolerance
+MOE_NEAR_TIE = 2.0 ** -6  # a top-k router logit this close to the next
+MOE_TIE_ATOL = 2.0 ** -2  # ... holds its position at this fraction of RMS
+COMP_B, COMP_S = 4, 512  # the compressed step's batch: 2 rows a pod
+COMP_TIMED = 2  # timed compressed steps, after the checked one
+COMP_LR = 1e-3
+# The int8 bound of a mean of two dequantized values: each is within half
+# its scale of its input, so their mean is within (s0 + s1) / 4 of the
+# exact mean; 1e-4 of it covers the float32 rounding of x / scale, q *
+# scale and the two sums (a few ulps of values up to 127 scales).
+COMP_BOUND_SLACK = 1e-4
+ELASTIC_LAYERS = 2  # qwen2.5-3b at full width and this depth for (c)
+
+
+def _hold_moe(got, want, near_tie, what):
+    """Phase 13's rule for a bf16 MoE output against its semantics: within
+    MOE_RMS_ATOL of the output's RMS, positions routed at a near-tie within
+    MOE_TIE_ATOL. Returns (largest difference over the RMS, near-ties)."""
+    import torch
+
+    rms = float(torch.sqrt(torch.mean(want.float() ** 2)))
+    d = (got.float() - want.float()).abs().amax(-1).reshape(-1)
+    tie = near_tie.reshape(-1)
+    for sel, atol in ((~tie, MOE_RMS_ATOL), (tie, MOE_TIE_ATOL)):
+        if bool(sel.any()):
+            assert float(d[sel].max()) <= atol * rms, (what, float(d.max()),
+                                                       rms)
+    return float(d.max()) / rms, int(tie.sum())
+
+
+def _moe_layer_params(cfg, seed, dev):
+    """The MoE sub-tree of one layer of ``cfg`` (the reference's specs),
+    drawn in bf16 on the card from a seed, scaled as ``init_params``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import params as PM
+
+    spec = PM.param_specs(dataclasses.replace(cfg, n_layers=1))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dtype = PM.torch_dtype(cfg.param_dtype)
+
+    def make(p):
+        x = torch.randn(p.shape, generator=g, dtype=dtype, device=dev)
+        return x.mul_(p.scale)
+
+    return PM.tree_map(make, spec["groups"][0]["sub0"]["moe"])
+
+
+def _moe_full(seed, dev):
+    """(a) one arctic-480b MoE layer at its own capacity factor over
+    (data, model) meshes of the card, against each batch shard's
+    single-device MoE; two runs of one mesh bitwise."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.aqp.executor import Mesh
+    from repro_torch.models import ffn as FF
+    from repro_torch.models.common import ShardCtx, torch_dtype
+
+    cfg = configs.get(MOE_ARCH)
+    m = cfg.moe
+    p = _moe_layer_params(cfg, seed, dev)
+    n_expert_bytes = sum(p[w].numel() * p[w].element_size()
+                         for w in ("we_g", "we_u", "we_d"))
+    x = torch.randn((MOE_B, MOE_S, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(seed + 1), dtype=torch_dtype(
+        cfg.compute_dtype), device=dev)
+    n = MOE_B * MOE_S
+    with torch.inference_mode():
+        logits = (x.reshape(n, -1) @ p["router"]).float()
+        top = torch.sort(logits, dim=-1, descending=True).values
+        kth, nxt = top[:, m.top_k - 1], top[:, m.top_k]
+        near_tie = (kth - nxt) <= MOE_NEAR_TIE * kth.abs()
+        out = {"expert_gb": n_expert_bytes / 1e9, "tokens": n}
+        for dp, tp in MOE_MESHES:
+            mesh = Mesh((dev,) * (dp * tp), ("data", "model"), (dp, tp))
+            sctx = ShardCtx(mesh=mesh)
+            rows = MOE_B // dp
+            want = torch.cat([FF.moe_ffn(cfg, p, x[i * rows:(i + 1) * rows])
+                              for i in range(dp)])
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            runs, ms = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs.append(FF.moe_ffn(cfg, p, x, sctx))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            assert torch.equal(runs[0], runs[1]), (dp, tp)
+            assert bool(torch.isfinite(runs[0]).all())
+            err, ties = _hold_moe(runs[0], want, near_tie, (dp, tp))
+            cap = max(int(MOE_S * MOE_B // dp * m.top_k / m.n_experts
+                          * m.capacity_factor), 4)
+            log(f"{MOE_ARCH} MoE layer over (data {dp}, model {tp}) of the "
+                f"card, bf16, {n} tokens, capacity {cap} an expert "
+                f"(factor {m.capacity_factor}), {m.n_experts // tp} experts "
+                f"a position: {ms[0]:.3f} / {ms[1]:.3f} ms (first / second "
+                f"run, bitwise equal), largest difference from each batch "
+                f"shard alone {err:.4e} of the RMS ({ties} near-tie "
+                f"positions), peak memory {peak / 1e9:.3f} GB "
+                f"({(peak - base) / 1e9:.3f} GB above the "
+                f"{n_expert_bytes / 1e9:.3f} GB of experts and the inputs)")
+            out[f"{dp}x{tp}"] = dict(ms=ms, err_rms=err, near_ties=ties,
+                                     capacity=cap, peak_gb=peak / 1e9,
+                                     peak_above_gb=(peak - base) / 1e9)
+            del runs, want
+    del p, x
+    return out
+
+
+def _compressed_full(seed, dev):
+    """(b) qwen2.5-3b at full width and depth, AdamW, over (pod 2, data 1,
+    model 1) of the card: the int8 exchange's payloads, the mean the
+    optimizer gets against the exact mean of the pods' float32 gradients,
+    the loss against the pods' losses; then timed steps."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.aqp.executor import Mesh
+    from repro_torch.distributed import compression as C
+    from repro_torch.models import params as PM
+    from repro_torch.training import adamw
+
+    cfg = configs.get(LM_ARCH)
+    n_params = PM.count_params(cfg)
+    assert n_params == LM_PARAMS, n_params
+    mesh = Mesh((dev,) * 2, ("pod", "data", "model"), (2, 1, 1))
+    torch.cuda.reset_peak_memory_stats()
+    params = PM.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    n_leaves = len(PM.tree_leaves(params))
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (1, COMP_B, COMP_S + 1))
+    batch = {"tokens": torch.as_tensor(toks[..., :-1], device=dev),
+             "labels": torch.as_tensor(toks[..., 1:], device=dev)}
+    rec = {"losses": [], "exact": [], "calls": 0, "scales": None,
+           "bytes": 0, "payload_leaves": 0, "checking": True}
+    real_q, real_pp, real_acc = (C.quantize_int8, C.ppermute,
+                                 C.accumulated_grads)
+
+    def q_spy(x):
+        # the exact mean of the pods' float32 gradients, built on the card
+        # as pod 1's leaves arrive: (g0 + g1) / 2, leaf by leaf
+        if rec["checking"]:
+            j = rec["calls"] % n_leaves
+            if rec["calls"] < n_leaves:
+                rec["exact"].append(x.clone())
+            else:
+                rec["exact"][j].add_(x).div_(2)
+            rec["calls"] += 1
+        return real_q(x)
+
+    def pp_spy(xs, mesh_, axis, perm):
+        assert axis == "pod" and len(perm) == 2, (axis, perm)
+        for src, _ in perm:
+            for q, scale in xs[src]:
+                assert q.dtype == torch.int8, q.dtype
+                assert scale.dtype == torch.float32 and scale.numel() == 1
+                rec["bytes"] += q.numel() * q.element_size() + 4
+                rec["payload_leaves"] += 1
+        rec["scales"] = [[float(s) for _, s in xs[i]] for i in range(2)]
+        return real_pp(xs, mesh_, axis, perm)
+
+    def acc_spy(*a, **kw):
+        loss, grads = real_acc(*a, **kw)
+        rec["losses"].append(float(loss))
+        return loss, grads
+
+    worst = {"ratio": 0.0, "abs": 0.0}
+    opt = adamw()
+    real_update = opt.update
+
+    def update_spy(grads, state, params_, lr):
+        if rec["checking"]:
+            assert rec["calls"] == 2 * n_leaves, rec["calls"]
+            s0, s1 = rec["scales"]
+            for j, (_, g) in enumerate(PM.tree_leaves(grads)):
+                bound = (s0[j] + s1[j]) / 4
+                d = float((g - rec["exact"][j]).abs().max())
+                rec["exact"][j] = None  # freed before the update runs
+                worst["abs"] = max(worst["abs"], d)
+                worst["ratio"] = max(worst["ratio"], d / bound)
+                assert d <= bound * (1 + COMP_BOUND_SLACK), (j, d, bound)
+        return real_update(grads, state, params_, lr)
+
+    opt = dataclasses.replace(opt, update=update_spy)
+    state = opt.init(params)
+    C.quantize_int8, C.ppermute, C.accumulated_grads = q_spy, pp_spy, acc_spy
+    try:
+        # the checked step: no clipping, so the optimizer gets the mean
+        checked = C.make_compressed_train_step(cfg, opt, mesh, clip_norm=1e30)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, met = checked(params, state, batch, torch.tensor(COMP_LR))
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        l0, l1 = rec["losses"]
+        loss = float(met["loss"])
+        assert abs(loss - (l0 + l1) / 2) <= 1e-6 * abs(loss), (loss, l0, l1)
+        assert rec["payload_leaves"] == 2 * n_leaves
+        assert rec["bytes"] == 2 * (n_params + 4 * n_leaves), rec["bytes"]
+        exchanged = rec["bytes"]
+        rec.update(checking=False, exact=[], losses=[], bytes=0)
+        step = C.make_compressed_train_step(cfg, opt, mesh)
+        ms, losses = [], []
+        for i in range(COMP_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, met = step(params, state, batch, torch.tensor(COMP_LR))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+    finally:
+        C.quantize_int8, C.ppermute, C.accumulated_grads = (real_q, real_pp,
+                                                            real_acc)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(losses)) and losses[-1] < loss, (loss, losses)
+    step_ms = float(np.median(ms))
+    log(f"{LM_ARCH} compressed train step, bf16 AdamW, (pod 2, data 1, model "
+        f"1) of the card, {COMP_B} x {COMP_S} tokens ({COMP_B // 2} rows a "
+        f"pod): checked step {first_ms:.3f} ms (the exact mean kept for the "
+        f"check), timed {', '.join(f'{t:.3f}' for t in ms)} ms: "
+        f"{step_ms:.3f} ms a step (median); losses {loss:.6f} (pods {l0:.6f},"
+        f" {l1:.6f}), then {', '.join(f'{x:.6f}' for x in losses)}; the mean"
+        f" the optimizer got within {worst['ratio']:.6f} of the int8 bound "
+        f"(s0 + s1) / 4 at worst (largest difference {worst['abs']:.4e}); "
+        f"{exchanged} bytes exchanged a step (int8 q, one byte a parameter, "
+        f"and a float32 scale a leaf, {n_leaves} leaves, both ways), "
+        f"{4 * 2 * n_params} as float32; peak device memory "
+        f"{peak / 1e9:.3f} GB")
+    del params, state, step, checked
+    return dict(step_ms=step_ms, timed_ms=ms, checked_ms=first_ms,
+                loss=loss, pod_losses=[l0, l1], losses=losses,
+                bound_ratio=worst["ratio"], max_abs=worst["abs"],
+                bytes_exchanged=exchanged, f32_bytes=4 * 2 * n_params,
+                peak_gb=peak / 1e9)
+
+
+def _elastic_full(seed, dev):
+    """(c) qwen2.5-3b's parameters and AdamW state (full width, cut depth)
+    placed under FSDP_RULES on (data 4, model 1), through a checkpoint,
+    resharded onto (data 2, model 1): bitwise the originals."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.aqp.executor import Mesh
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.ft.elastic import reshard
+    from repro_torch.models import params as PM
+    from repro_torch.training import adamw
+
+    cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=ELASTIC_LAYERS)
+    params = PM.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    state = adamw().init(params)
+    state["step"].fill_(3)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    for k in ("m", "v"):
+        PM.tree_map(lambda t: t.normal_(generator=g), state[k])
+    tree = (params, state)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for _, t in PM.tree_leaves(list(tree)))
+
+    def shardings(data):
+        mesh = Mesh((dev,) * data, ("data", "model"), (data, 1))
+        ps = PM.shardings(cfg, mesh, SH.FSDP_RULES)
+        return ps, SH.opt_state_shardings("adamw", ps, state)
+
+    t0 = time.perf_counter()
+    placed = SH.device_put(tree, shardings(4))
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        mgr.save(3, placed, {"step": 3})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _ = mgr.restore(placed)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del placed
+    t0 = time.perf_counter()
+    moved = reshard(restored, shardings(2))
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t0
+    del restored
+    got = SH.device_get(moved, dev)
+    assert all(len(t.shards) == 2 for _, t in PM.tree_leaves(list(moved)))
+    del moved
+    same = True
+    for (_, a), (_, b) in zip(PM.tree_leaves(list(got)),
+                              PM.tree_leaves(list(tree))):
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        same = same and bool(torch.equal(a, b))
+    log(f"{LM_ARCH} at full width and {ELASTIC_LAYERS} layers: parameters "
+        f"and AdamW state ({n_bytes / 1e9:.3f} GB) placed under FSDP_RULES "
+        f"on (data 4, model 1) in {put_s:.3f} s, saved in {save_s:.3f} s, "
+        f"restored in {restore_s:.3f} s, resharded onto (data 2, model 1) "
+        f"in {reshard_s:.3f} s: bitwise the originals {same}")
+    assert same
+    del got, tree, params, state
+    return dict(gb=n_bytes / 1e9, put_s=put_s, save_s=save_s,
+                restore_s=restore_s, reshard_s=reshard_s)
+
+
+def distributed_layer(seed, smi):
+    """Phase 13: the distributed layer on the card."""
+    import torch
+    from repro_torch.core.types import resolve_device
+
+    dev = resolve_device(None)
+    log("== phase 13: the distributed layer (expert-parallel MoE, the int8 "
+        "pod exchange, elastic re-placement) on the card")
+    log(f"card: {smi}")
+    t_phase = time.perf_counter()
+    out = {"moe": _moe_full(seed, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["compressed"] = _compressed_full(seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["elastic"] = _elastic_full(seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4795,6 +5151,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     e2e12 = trace_layer(args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e13 = distributed_layer(args.seed, smi)
     serve_w, refit_w = wide_counts["serve"], wide_counts["refit"]
 
     def at(shape, rec):  # a kernel's record at a wide shape
@@ -4898,6 +5257,7 @@ def main():
         f" CUDA vs CPU {json.dumps(worst)}; wide CUDA vs CPU "
         f"{json.dumps(worst_wide)}; phase 10 {json.dumps(e2e10)};"
         f" phase 11 {json.dumps(e2e11)}; phase 12 {json.dumps(e2e12)};"
+        f" phase 13 {json.dumps(e2e13)};"
         f" total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -80,6 +80,18 @@ IDLE_KEEP = {
                           "(python -m repro_torch.launch.train) and the "
                           "roofline terms; nothing imports the package "
                           "itself",
+    "repro_torch.distributed.compression": "the int8 cross-pod gradient "
+                                           "exchange and its train step "
+                                           "(idle in the reference too); "
+                                           "chip_smoke.py phase 13 and "
+                                           "tests/test_torch_distributed.py",
+    "repro_torch.ft.elastic": "re-placing a checkpoint onto another mesh "
+                              "(idle in the reference too); "
+                              "chip_smoke.py phase 13 and "
+                              "tests/test_torch_elastic.py",
+    "repro_torch.launch.mesh": "the production and host meshes of the "
+                               "visible cards (idle in the reference too); "
+                               "tests/test_torch_elastic.py",
     "repro_torch.launch.roofline": "the H100 roofline terms and model "
                                    "FLOPs; chip_smoke.py phase 11 reads "
                                    "model_flops; its importers in the "

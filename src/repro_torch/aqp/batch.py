@@ -44,8 +44,8 @@ class BatchExecutor:
 
     The scan routes through a ``ScanPlacement`` with the engine's per-block
     evaluator: pass ``placement=`` directly, or ``mesh=`` (a
-    ``repro_torch.aqp.executor.Mesh``, whose one axis must be
-    ``mesh_axis``) to build a ``ShardedScanPlacement``; with neither, the
+    ``repro_torch.aqp.executor.Mesh`` with an axis ``mesh_axis``, which the
+    scan is split over) to build a ``ShardedScanPlacement``; with neither, the
     engine's own placement (``engine.scan``), so served queries accrue
     into the engine's scan telemetry. Stats of the latest call are kept in
     ``self.stats``.
@@ -55,10 +55,10 @@ class BatchExecutor:
                  placement: Optional[ScanPlacement] = None):
         self.engine = engine
         if placement is None:
-            if mesh is not None and mesh.axis_names != (mesh_axis,):
-                raise ValueError(f"mesh_axis {mesh_axis!r} is not the mesh's "
-                                 f"axis {mesh.axis_names}")
-            placement = (scan_placement(mesh) if mesh is not None
+            if mesh is not None and mesh_axis not in mesh.axis_names:
+                raise ValueError(f"mesh_axis {mesh_axis!r} is not an axis of "
+                                 f"the mesh {mesh.axis_names}")
+            placement = (scan_placement(mesh, mesh_axis) if mesh is not None
                          else engine.scan)
         self.placement = placement
         self.mesh = placement.mesh

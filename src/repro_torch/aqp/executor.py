@@ -31,7 +31,8 @@ shard.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -197,58 +198,123 @@ def pad_tuple_axis(n_shards: int, num_normalized, cat, measures, valid=None):
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A one-axis mesh of torch devices, the port's stand-in for
+    """A mesh of torch devices with named axes, the port's stand-in for
     ``jax.sharding.Mesh``.
 
-    Each entry of ``devices`` is one logical shard; a device may be listed
-    several times (one CUDA card, or the CPU, split into shards). Devices
-    are resolved as every entry point resolves them: ``"cuda"`` means the
+    ``devices`` lists the mesh's positions in row-major order over
+    ``axis_sizes`` (one size per name of ``axis_names``); with no sizes
+    the mesh has one axis over every device, so ``Mesh((dev,) * k)`` is a
+    ``("data",)`` mesh of ``k`` shards. A device may be listed several
+    times (one CUDA card, or the CPU, split into positions). Devices are
+    resolved as every entry point resolves them: ``"cuda"`` means the
     current card, and a CUDA device with no card present fails loudly.
     """
 
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = ("data",)
+    axis_sizes: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         devices = tuple(resolve_device(d) for d in self.devices)
+        names = tuple(self.axis_names)
         if not devices:
             raise ValueError("a Mesh needs at least one device")
-        if len(self.axis_names) != 1:
-            raise ValueError("a Mesh has exactly one axis, got "
-                             f"{self.axis_names}")
+        if len(set(names)) != len(names):
+            raise ValueError(f"mesh axis names repeat: {names}")
+        sizes = self.axis_sizes
+        if sizes is None:
+            if len(names) != 1:
+                raise ValueError(f"a Mesh of axes {names} needs axis_sizes")
+            sizes = (len(devices),)
+        sizes = tuple(int(n) for n in sizes)
+        if len(sizes) != len(names) or math.prod(sizes) != len(devices):
+            raise ValueError(f"axis sizes {sizes} of axes {names} do not "
+                             f"cover {len(devices)} devices")
         object.__setattr__(self, "devices", devices)
-        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "axis_sizes", sizes)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {self.axis_names[0]: len(self.devices)}
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def position(self, coords: Dict[str, int]) -> int:
+        """Row-major index into ``devices`` of mesh coordinates by axis
+        name (an axis left out is at 0)."""
+        if not set(coords) <= set(self.axis_names):
+            raise ValueError(f"coordinates {coords} for axes "
+                             f"{self.axis_names}")
+        pos = 0
+        for a, n in zip(self.axis_names, self.axis_sizes):
+            c = coords.get(a, 0)
+            if not 0 <= c < n:
+                raise IndexError(f"coordinates {coords} outside "
+                                 f"{self.shape}")
+            pos = pos * n + c
+        return pos
+
+    def coords(self, position: int) -> Dict[str, int]:
+        """Mesh coordinates of a row-major position."""
+        out = {}
+        for a, n in reversed(tuple(zip(self.axis_names, self.axis_sizes))):
+            position, out[a] = divmod(position, n)
+        return {a: out[a] for a in self.axis_names}
+
+    def device_at(self, coords) -> torch.device:
+        return self.devices[self.position(coords)]
+
+    def sub_mesh(self, axis: str, index: int) -> "Mesh":
+        """The mesh of the other axes at ``index`` of ``axis``."""
+        k = self.axis_names.index(axis)
+        keep = [p for p in range(self.size)
+                if self.coords(p)[axis] == index]
+        if not keep:
+            raise IndexError(f"index {index} outside axis {axis!r} of "
+                             f"{self.shape}")
+        return Mesh(tuple(self.devices[p] for p in keep),
+                    self.axis_names[:k] + self.axis_names[k + 1:],
+                    self.axis_sizes[:k] + self.axis_sizes[k + 1:])
+
+    def axis_devices(self, axis: str) -> Tuple[torch.device, ...]:
+        """The devices along ``axis`` at index 0 of every other axis."""
+        return tuple(self.device_at({axis: i})
+                     for i in range(self.shape[axis]))
 
 
-def place_shards(mesh: Mesh, num_normalized, cat, valid):
-    """Split a padded block's mask-stage arrays into ``len(mesh.devices)``
-    equal shards, shard ``i`` on ``mesh.devices[i]``: a list of
-    ``(num, cat, valid)``. The measure payload never moves."""
-    n = len(mesh.devices)
-    rows = num_normalized.shape[0] // n
+def place_shards(mesh: Mesh, num_normalized, cat, valid, axis=None):
+    """Split a padded block's mask-stage arrays into ``mesh.shape[axis]``
+    equal shards (``axis``: the mesh's first by default), shard ``i`` on
+    the device at index ``i`` of ``axis`` and index 0 of the other axes:
+    a list of ``(num, cat, valid)``. The measure payload never moves."""
+    devices = mesh.axis_devices(axis or mesh.axis_names[0])
+    rows = num_normalized.shape[0] // len(devices)
     return [tuple(a[i * rows:(i + 1) * rows].to(dev)
                   for a in (num_normalized, cat, valid))
-            for i, dev in enumerate(mesh.devices)]
+            for i, dev in enumerate(devices)]
 
 
 def sharded_mask(mesh: Mesh, num_normalized, cat, snippets: SnippetBatch,
-                 valid=None):
-    """The mask stage of a sharded block: ``(mask, scanned)``.
+                 valid=None, axis=None):
+    """The mask stage of a block sharded over ``axis`` (the mesh's first
+    by default): ``(mask, scanned)``.
 
     The tuple axis is padded with a validity mask (``pad_tuple_axis``) and
-    split over the mesh (``place_shards``); each shard's predicate mask is
-    built on its own device, and the masks of the true rows are gathered
-    onto ``mesh.devices[0]`` as one (T, n) mask. ``scanned`` is the
-    validity-mask sum: a shard made only of padding adds nothing.
+    split over the mesh axis (``place_shards``); each shard's predicate
+    mask is built on its own device, and the masks of the true rows are
+    gathered onto ``mesh.devices[0]`` as one (T, n) mask. ``scanned`` is
+    the validity-mask sum: a shard made only of padding adds nothing. The
+    other axes replicate the block, so only their index 0 computes: a
+    ``(data, model)`` mesh gives what its ``data`` axis alone gives.
     """
+    axis = axis or mesh.axis_names[0]
     t = num_normalized.shape[0]
     num_p, cat_p, _, valid_p = pad_tuple_axis(
-        len(mesh.devices), num_normalized, cat, None, valid)
-    shards = place_shards(mesh, num_p, cat_p, valid_p)
+        mesh.shape[axis], num_normalized, cat, None, valid)
+    shards = place_shards(mesh, num_p, cat_p, valid_p, axis)
     home = mesh.devices[0]
     masks = [predicate_mask(num_s, cat_s, snippets.to(num_s.device),
                             valid_s).to(home)
@@ -257,14 +323,17 @@ def sharded_mask(mesh: Mesh, num_normalized, cat, snippets: SnippetBatch,
 
 
 def eval_partials_sharded(mesh: Mesh, num_normalized, cat, measures,
-                          snippets: SnippetBatch, valid=None) -> Partials:
-    """Partials of one block over the mesh's one axis, for any (tuple
-    count, mesh size): the gathered mask of ``sharded_mask`` folded by the
-    ``masked_partials`` kernel's wrapper — the kernel on the card, its
-    plain version (bitwise the plain fold) on the CPU."""
+                          snippets: SnippetBatch, valid=None,
+                          axis=None) -> Partials:
+    """Partials of one block over one mesh axis (the first by default),
+    for any (tuple count, axis size): the gathered mask of
+    ``sharded_mask`` folded by the ``masked_partials`` kernel's wrapper —
+    the kernel on the card, its plain version (bitwise the plain fold) on
+    the CPU."""
     from repro_torch.kernels.fused_masked_scan import ops as fms_ops
 
-    mask, scanned = sharded_mask(mesh, num_normalized, cat, snippets, valid)
+    mask, scanned = sharded_mask(mesh, num_normalized, cat, snippets, valid,
+                                 axis)
     return fms_ops.masked_partials_fused(mask, measures, snippets, scanned)
 
 
@@ -351,27 +420,30 @@ class ScanPlacement:
 
 
 class ShardedScanPlacement(ScanPlacement):
-    """Tuple blocks split over the axis of a ``Mesh`` and evaluated through
-    ``eval_partials_sharded``: any block size over any mesh size, bitwise
-    equal to the local placement."""
+    """Tuple blocks split over one named axis of a ``Mesh`` (its first by
+    default) and evaluated through ``eval_partials_sharded``: any block
+    size over any axis size, bitwise equal to the local placement."""
 
     kind = "sharded"
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, axis: Optional[str] = None):
         super().__init__()
         self.mesh = mesh
-        self.axis = mesh.axis_names[0]
+        self.axis = axis or mesh.axis_names[0]
+        if self.axis not in mesh.axis_names:
+            raise ValueError(f"axis {self.axis!r} is not an axis of the "
+                             f"mesh {mesh.axis_names}")
 
     @property
     def n_shards(self) -> int:
-        return len(self.mesh.devices)
+        return self.mesh.shape[self.axis]
 
     def describe(self) -> str:
         return f"sharded:{self.n_shards}x{self.axis}"
 
     def place(self, num_normalized, cat, valid):
-        """Split the (padded) tuple axis over the mesh devices."""
-        return place_shards(self.mesh, num_normalized, cat, valid)
+        """Split the (padded) tuple axis over the mesh axis' devices."""
+        return place_shards(self.mesh, num_normalized, cat, valid, self.axis)
 
     def evaluator_for(self, local_eval, device) -> str:
         """The mask is always built shard by shard, whatever ``local_eval``
@@ -392,14 +464,15 @@ class ShardedScanPlacement(ScanPlacement):
                                                  self.mesh.devices[0])
         return eval_partials_sharded(
             self.mesh, block.num_normalized, block.cat, block.measures,
-            snippets)
+            snippets, axis=self.axis)
 
 
-def scan_placement(mesh=None) -> ScanPlacement:
-    """The placement for an optional mesh (the ``connect`` wiring)."""
+def scan_placement(mesh=None, axis: Optional[str] = None) -> ScanPlacement:
+    """The placement for an optional mesh (the ``connect`` wiring), over
+    ``axis`` of it (its first by default)."""
     if mesh is None:
         return ScanPlacement()
-    return ShardedScanPlacement(mesh)
+    return ShardedScanPlacement(mesh, axis)
 
 
 def estimates_from_partials(parts: Partials, snippets: SnippetBatch,

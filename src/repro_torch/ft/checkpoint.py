@@ -27,7 +27,9 @@ by either package loads in the other. This package is one process (its
   — invisible to readers), ``checkpoint.read`` per step read (exercises the
   fallback walk).
 - ``restore(target)`` takes a tree of tensors (or arrays) and places each
-  leaf on the target leaf's device and dtype. ``restore_blind`` hands back
+  leaf on the target leaf's device and dtype; a ``ShardedTensor`` leaf
+  (``repro_torch.distributed.sharding``, saved as its global array) is
+  placed by its sharding, or by the one ``restore(shardings=...)`` gives. ``restore_blind`` hands back
   nested dicts of numpy arrays: store snapshots come back that way and the
   loading store re-places each key by its own policy, so a checkpoint
   written under one mesh shape restores onto any other.
@@ -106,6 +108,10 @@ _BF16_BITS = np.dtype("V2")  # a bfloat16 leaf's bits on disk
 
 
 def _host(x) -> np.ndarray:
+    from repro_torch.distributed.sharding import ShardedTensor, device_get
+
+    if isinstance(x, ShardedTensor):  # its global array
+        x = device_get(x)
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:  # numpy has no bfloat16: its bits
@@ -287,25 +293,37 @@ class CheckpointManager:
             node[parts[-1]] = arr
         return tree, manifest["extra"]
 
-    def restore(self, target: Any, step: Optional[int] = None):
+    def restore(self, target: Any, step: Optional[int] = None,
+                shardings: Any = None):
         """Restore into the structure of ``target``; returns (tree, extra).
 
         A tensor leaf of ``target`` comes back as a tensor on that leaf's
-        device with its dtype; an array leaf as an array of its dtype; any
-        other leaf as the stored array. A stored bfloat16 leaf (``|V2``
-        bits) becomes a bfloat16 tensor bit for bit before it is cast.
+        device with its dtype; a ``ShardedTensor`` leaf placed by its
+        sharding, with its dtype; an array leaf as an array of its dtype;
+        any other leaf as the stored array. ``shardings``: an optional tree
+        of ``NamedSharding``s (re-placing onto another mesh happens here,
+        ``device_put``), which takes the place of the target leaves' own.
+        A stored bfloat16 leaf (``|V2`` bits) becomes a bfloat16 tensor bit
+        for bit before it is cast.
         """
+        from repro_torch.distributed.sharding import ShardedTensor, device_put
+
         data, manifest = self._read_step(step)
         missing = set(_flatten(target)) - set(data)
         if missing:
             raise ValueError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
+        flat_s = _flatten(shardings) if shardings is not None else {}
 
         def place(key, leaf):
             arr = data[key]
             bf16 = manifest["keys"].get(key, {}).get("dtype") == "bfloat16" \
                 and arr.dtype == _BF16_BITS
-            if isinstance(leaf, torch.Tensor):
+            sharded = isinstance(leaf, ShardedTensor)
+            s = flat_s.get(key, leaf.sharding if sharded else None)
+            if sharded or isinstance(leaf, torch.Tensor):
                 t = _bf16_tensor(arr) if bf16 else torch.as_tensor(arr)
+                if s is not None:
+                    return device_put(t.to(leaf.dtype), s)
                 return t.to(device=leaf.device, dtype=leaf.dtype)
             if bf16:
                 arr = _bf16_tensor(arr).float().numpy()

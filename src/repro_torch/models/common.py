@@ -2,28 +2,55 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
+                                              ShardedTensor, device_get,
+                                              tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
     """Runtime distribution context threaded through model forward passes.
 
-    Single device only: the reference's mesh (expert-parallel MoE and
-    activation sharding constraints) comes with the port of
-    ``distributed/sharding.py``, so a ``mesh`` is refused rather than run
-    on one device in silence.
+    When ``mesh`` (a ``repro_torch.aqp.executor.Mesh``) is set, MoE layers
+    run expert-parallel over ``model_axis`` with their tokens split over
+    ``batch_axes`` (``ffn.moe_ffn``). When None (smoke tests / single
+    device), everything runs on the inputs' device. The placement is one
+    process's: a sharding constraint changes no value, so ``constrain``
+    only checks its spec against the mesh.
     """
 
     mesh: object = None
+    batch_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    # ZeRO-3 semantics: layer weights are *stored* fully sharded
+    # (``ShardedTensor`` leaves from ``distributed.sharding.device_put``)
+    # and gathered at use, onto the mesh's first device, where the layer's
+    # dense compute runs.
+    gather_weights: bool = False
 
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "ShardCtx(mesh=...) is not ported: the mesh comes with the "
-                "port of distributed/sharding.py; pass no mesh")
+    @property
+    def enabled(self) -> bool:
+        return self.mesh is not None
+
+    def use_weights(self, p):
+        if not (self.enabled and self.gather_weights):
+            return p
+        home = self.mesh.devices[0]
+        return tree_map(lambda w: device_get(w, home)
+                         if isinstance(w, ShardedTensor) else w, p)
+
+    def constrain(self, x, *spec):
+        if self.enabled:
+            NamedSharding(self.mesh, PartitionSpec(*spec))
+        return x
+
+    def batch_spec(self):
+        return self.batch_axes if self.enabled else None
 
 
 def rms_norm(x, w, eps: float = 1e-6):

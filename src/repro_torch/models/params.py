@@ -6,9 +6,10 @@ name. It materializes two ways here:
   - ``init_params``     -> random tensors from a ``torch.Generator``
   - ``params_from_jax`` -> the reference's ``init_params`` output (as numpy
                            arrays) carried across, name for name
-Scanned layer groups get a leading 'layers' axis. The reference's
-``shardings`` and ``abstract_params`` (NamedSharding trees) come with the
-port of ``distributed/*``.
+Scanned layer groups get a leading 'layers' axis. ``shardings`` resolves
+the tree through a rule set (``repro_torch.distributed.sharding``) into
+``NamedSharding`` leaves, and ``abstract_params`` into ``ShapeDtypeStruct``
+leaves, optionally sharded.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
+                                              ShapeDtypeStruct)
 from repro_torch.models.common import torch_dtype
 from repro_torch.models.config import ArchConfig, LayerSpec
 
@@ -267,6 +270,27 @@ def params_from_jax(cfg: ArchConfig, tree, *, device=None):
     if got:
         raise KeyError(f"parameters not in the config's tree: {sorted(got)}")
     return out
+
+
+def shardings(cfg: ArchConfig, mesh, rules: dict):
+    """NamedSharding tree resolved through the logical-axis rules."""
+
+    def resolve(p: P):
+        spec = tuple(rules.get(a) if a else None for a in p.axes)
+        return NamedSharding(mesh, PartitionSpec(*spec))
+
+    return tree_map(resolve, param_specs(cfg))
+
+
+def abstract_params(cfg: ArchConfig, mesh=None, rules: Optional[dict] = None):
+    """ShapeDtypeStruct tree (optionally sharded) — the dry-run path."""
+    dtype = torch_dtype(cfg.param_dtype)
+    specs = param_specs(cfg)
+    if mesh is None:
+        return tree_map(lambda p: ShapeDtypeStruct(p.shape, dtype), specs)
+    it = iter(s for _, s in tree_leaves(shardings(cfg, mesh, rules)))
+    return tree_map(lambda p: ShapeDtypeStruct(p.shape, dtype, next(it)),
+                    specs)
 
 
 def count_params(cfg: ArchConfig) -> int:

@@ -72,10 +72,12 @@ def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
     return c
 
 
-def layer_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, positions, *,
-              mode: str = "train", cache=None, pos=None, ctx_tokens=None):
+def layer_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, positions,
+              sctx: ShardCtx = ShardCtx(), *, mode: str = "train", cache=None,
+              pos=None, ctx_tokens=None):
     """One transformer layer. Returns x; in "prefill" and "decode" modes it
     writes the layer's ``cache`` in place."""
+    p = sctx.use_weights(p)  # ZeRO-3: gather stored shards at use
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mixed = None
 
@@ -136,7 +138,7 @@ def layer_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, positions, *,
 
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if spec.moe:
-        ffn_out = F.moe_ffn(cfg, p["moe"], h2)
+        ffn_out = F.moe_ffn(cfg, p["moe"], h2, sctx)
     else:
         ffn_out = F.dense_ffn(cfg, p["ffn"], h2)
     if cfg.post_norm:
@@ -159,16 +161,18 @@ def _unstack(tree, n):
     return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
 
 
-def _unit_fwd(cfg, unit, lp, x, positions, *, mode, lc, pos, ctx_tokens):
+def _unit_fwd(cfg, unit, lp, x, positions, sctx, *, mode, lc, pos,
+              ctx_tokens):
     for i, spec in enumerate(unit):
-        x = layer_fwd(cfg, spec, lp[f"sub{i}"], x, positions, mode=mode,
+        x = layer_fwd(cfg, spec, lp[f"sub{i}"], x, positions, sctx, mode=mode,
                       cache=lc[f"sub{i}"] if lc else None, pos=pos,
                       ctx_tokens=ctx_tokens)
     return x
 
 
-def groups_fwd(cfg, groups_params, plan, x, positions, *, mode="train",
-               caches=None, pos=None, ctx_tokens=None, remat=True):
+def groups_fwd(cfg, groups_params, plan, x, positions,
+               sctx: ShardCtx = ShardCtx(), *, mode="train", caches=None,
+               pos=None, ctx_tokens=None, remat=True):
     """Run all layer groups, layer by layer over each group's stacked axis.
     Returns x; caches, when given, are written in place. In "train" mode
     under autograd with ``remat``, each unit is recomputed in the
@@ -184,10 +188,10 @@ def groups_fwd(cfg, groups_params, plan, x, positions, *, mode="train",
             kw = dict(mode=mode, lc=lc, pos=pos, ctx_tokens=ctx_tokens)
             if recompute:  # no RNG in a layer: no RNG state to keep
                 x = torch.utils.checkpoint.checkpoint(
-                    _unit_fwd, cfg, unit, lp, x, positions, **kw,
+                    _unit_fwd, cfg, unit, lp, x, positions, sctx, **kw,
                     use_reentrant=False, preserve_rng_state=False)
             else:
-                x = _unit_fwd(cfg, unit, lp, x, positions, **kw)
+                x = _unit_fwd(cfg, unit, lp, x, positions, sctx, **kw)
     return x
 
 
@@ -240,7 +244,13 @@ def forward(cfg: ArchConfig, params, tokens, sctx: ShardCtx = ShardCtx(), *,
     Returns (logits, caches): in "prefill" and "decode" modes ``caches``
     (from ``init_cache``) are written in place and returned. ``remat``:
     recompute each layer in the backward ("train" mode under autograd).
+    ``sctx``: a mesh runs the MoE layers expert-parallel; with
+    ``gather_weights``, sharded parameters are gathered at use.
     """
+    if sctx.gather_weights:  # ZeRO-3: embed/head shards gathered at use too
+        top = {k: v for k, v in params.items()
+               if k not in ("groups", "enc_groups", "dec_groups")}
+        params = {**params, **sctx.use_weights(top)}
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
     if cfg.meta_tokens and mode != "decode":
@@ -254,8 +264,8 @@ def forward(cfg: ArchConfig, params, tokens, sctx: ShardCtx = ShardCtx(), *,
     positions = None
     if mode != "decode":
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    x = groups_fwd(cfg, groups, plan, x, positions, mode=mode, caches=caches,
-                   pos=pos, ctx_tokens=ctx_tokens, remat=remat)
+    x = groups_fwd(cfg, groups, plan, x, positions, sctx, mode=mode,
+                   caches=caches, pos=pos, ctx_tokens=ctx_tokens, remat=remat)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     if cfg.meta_tokens and mode != "decode":
         x = x[:, cfg.meta_tokens:]
@@ -269,7 +279,7 @@ def encode(cfg: ArchConfig, params, enc_embeds, sctx: ShardCtx = ShardCtx(),
     positions = torch.arange(s, device=enc_embeds.device)[None].expand(b, s)
     x = enc_embeds.to(torch_dtype(cfg.compute_dtype))
     x = groups_fwd(cfg, params["enc_groups"], cfg.encoder_plan(), x,
-                   positions, mode="train", remat=remat)
+                   positions, sctx, mode="train", remat=remat)
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 

@@ -60,6 +60,42 @@ def value_and_grad(cfg, params, batch, sctx: ShardCtx = ShardCtx(), *,
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
+def accumulated_grads(cfg, params, batch, sctx: ShardCtx = ShardCtx(), *,
+                      accum: int = 1, loss_fn: Optional[Callable] = None):
+    """(loss, gradient leaves in ``tree_leaves`` order) of one step's
+    ``accum`` microbatches (batch leaves shaped (accum, micro, ...)): with
+    ``accum == 1`` the gradients in the parameters' dtypes, else their
+    float32 mean and the mean loss (the reference's zeros + each
+    microbatch's gradients, then / accum)."""
+    acc = None
+    loss_sum = 0.0
+    for i in range(accum):
+        mb = {k: v[i] for k, v in batch.items()}
+        loss, grads = value_and_grad(cfg, params, mb, sctx, loss_fn=loss_fn)
+        grads = [g for _, g in tree_leaves(grads)]
+        if accum == 1:
+            return loss, grads
+        if acc is None:  # 0 + g: the reference's zeros + first grads
+            acc = [g.to(torch.float32, copy=True) for g in grads]
+        else:
+            for a, g in zip(acc, grads):
+                a.add_(g)  # float32 sum; a bf16 g is widened exactly
+        del grads
+        loss_sum = loss_sum + loss
+    for a in acc:
+        a.div_(accum)
+    return loss_sum / accum, acc
+
+
+def clip_in_place(grads, clip_norm):
+    """``clip_by_global_norm`` on a float32 gradient tree, scaling its
+    buffers in place; returns the norm before clipping."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
+    tree_map(lambda g: g.mul_(scale), grads)
+    return gnorm
+
+
 def make_train_step(cfg, opt: Optimizer, sctx: ShardCtx = ShardCtx(), *,
                     accum: int = 1, clip_norm: float = 1.0,
                     loss_fn: Optional[Callable] = None,
@@ -75,35 +111,16 @@ def make_train_step(cfg, opt: Optimizer, sctx: ShardCtx = ShardCtx(), *,
     """
 
     def step(params, opt_state, batch, lr):
-        acc = None
-        loss_sum = 0.0
-        for i in range(accum):
-            mb = {k: v[i] for k, v in batch.items()}
-            loss, grads = value_and_grad(cfg, params, mb, sctx,
-                                         loss_fn=loss_fn)
-            grads = [g for _, g in tree_leaves(grads)]
-            if accum == 1:
-                acc = [g.float() for g in grads]
-            elif acc is None:  # 0 + g: the reference's zeros + first grads
-                acc = [g.to(torch.float32, copy=True) for g in grads]
-            else:
-                for a, g in zip(acc, grads):
-                    a.add_(g)  # float32 sum; a bf16 g is widened exactly
-            del grads
-            loss_sum = loss_sum + loss
-        if accum > 1:
-            for a in acc:
-                a.div_(accum)
-            loss = loss_sum / accum
+        loss, acc = accumulated_grads(cfg, params, batch, sctx, accum=accum,
+                                      loss_fn=loss_fn)
+        if accum == 1:
+            acc = [g.float() for g in acc]
         it = iter(acc)
         grads = tree_map(lambda _: next(it), params)
         del acc, it
         if grad_transform is not None:
             grads = grad_transform(grads)
-        # clip_by_global_norm, scaling the float32 buffers in place
-        gnorm = global_norm(grads)
-        scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
-        tree_map(lambda g: g.mul_(scale), grads)
+        gnorm = clip_in_place(grads, clip_norm)
         params, opt_state = opt.update(grads, opt_state, params, lr)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 

@@ -1799,3 +1799,171 @@ def test_t003_mask_build_is_shard_local_on_the_card(n_shards):
     assert len(set(p.trace().shards.values())) == n_shards
     assert check_mask_build_collectives(p) == []
     assert cross_shard_ops(p.trace()) == []
+
+
+# ------------------------------------------------------- distributed layer
+def _card_mesh(shape, axes):
+    dev = pt_types.resolve_device(None)
+    return pt_exec.Mesh((dev,) * int(np.prod(shape)), axes, shape)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=str)
+@pytest.mark.parametrize("cap", [1.0, 1.25])
+def test_mesh_moe_on_the_card_is_each_batch_shard_alone(shape, cap,
+                                                        _no_tf32):
+    """arctic-smoke's MoE layer over a (data, model) mesh of the card: each
+    batch shard's single-device MoE (the same local capacity), within
+    float32 rounding; two runs bitwise."""
+    import dataclasses
+
+    from repro_torch.models import ffn as pt_lm_ffn
+    from repro_torch.models.common import ShardCtx
+
+    cfg = pt_configs.get_smoke("arctic-480b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cap))
+    dev = pt_types.resolve_device(None)
+    params = pt_lm_params.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(2))
+    p = pt_lm_params.tree_map(lambda t: t[0],
+                              params["groups"][0]["sub0"]["moe"])
+    x = torch.randn((4, 9, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    sctx = ShardCtx(mesh=_card_mesh(shape, ("data", "model")))
+    got = pt_lm_ffn.moe_ffn(cfg, p, x, sctx)
+    assert got.device == dev
+    assert torch.equal(got, pt_lm_ffn.moe_ffn(cfg, p, x, sctx))
+    rows = 4 // shape[0]
+    want = torch.cat([pt_lm_ffn.moe_ffn(cfg, p, x[i * rows:(i + 1) * rows])
+                      for i in range(shape[0])])
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _watch_exchange(monkeypatch):
+    from repro_torch.distributed import compression as C
+
+    seen = []
+    real = C.ppermute
+
+    def spy(xs, mesh, axis, perm):
+        seen.append(xs)
+        return real(xs, mesh, axis, perm)
+
+    monkeypatch.setattr(C, "ppermute", spy)
+    return seen
+
+
+def test_compressed_step_on_the_card_steps_a_replicated_leaf_once(
+        monkeypatch, _no_tf32):
+    """qwen-smoke over (pod 2, data 1, model 1) of the card: the pods read
+    one parameter tree (replicas alias), which the step updates once: the
+    result equals one AdamW update of a copy with the exchanged mean, the
+    payloads are int8 with a float32 scale a leaf, and the loss is the
+    pods' mean."""
+    from repro_torch.distributed import compression as C
+    from repro_torch.training import adamw
+    from repro_torch.training.train_loop import (accumulated_grads,
+                                                 clip_in_place)
+
+    cfg = pt_configs.get_smoke("qwen2.5-3b")
+    dev = pt_types.resolve_device(None)
+    params = pt_lm_params.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(5))
+    before = pt_lm_params.tree_map(lambda t: t.clone(), params)
+    mesh = _card_mesh((2, 1, 1), ("pod", "data", "model"))
+    batch = _train_batch(cfg, 1, 4, dev)
+    seen = _watch_exchange(monkeypatch)
+    opt = adamw()
+    state = opt.init(params)
+    _, _, met = C.make_compressed_train_step(cfg, opt, mesh)(
+        params, state, batch, torch.tensor(TRAIN_LR))
+    assert int(state["step"]) == 1
+    (payloads,) = seen
+    n = len(pt_lm_params.tree_leaves(params))
+    for pod in payloads:
+        assert len(pod) == n
+        for q, s in pod:
+            assert q.dtype == torch.int8 and s.dtype == torch.float32
+    means = [(C.dequantize(*a) + C.dequantize(*b)) / 2
+             for a, b in zip(payloads[0], payloads[1])]
+    it = iter(means)
+    grads = pt_lm_params.tree_map(lambda _: next(it), before)
+    clip_in_place(grads, 1.0)
+    once = pt_lm_params.tree_map(lambda t: t.clone(), before)
+    opt.update(grads, opt.init(once), once, torch.tensor(TRAIN_LR))
+    want = dict(pt_lm_params.tree_leaves(once))
+    for path, t in pt_lm_params.tree_leaves(params):
+        assert torch.equal(t, want[path]), path
+    rows = LM_B // 2
+    losses = [float(accumulated_grads(
+        cfg, before, {k: v[:, i * rows:(i + 1) * rows]
+                      for k, v in batch.items()})[0]) for i in range(2)]
+    assert float(met["loss"]) == pytest.approx(sum(losses) / 2, rel=1e-6)
+
+
+def test_elastic_reshard_through_a_checkpoint_on_the_card(tmp_path):
+    """qwen-smoke in bf16 with an AdamW state placed under FSDP_RULES on
+    (data 4, model 1) of the card, saved, restored and resharded onto
+    (data 2, model 1): bitwise the originals, every shard on the card."""
+    import dataclasses
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.ft.elastic import reshard
+    from repro_torch.training import adamw
+
+    cfg = dataclasses.replace(pt_configs.get_smoke("qwen2.5-3b"),
+                              param_dtype="bfloat16")
+    dev = pt_types.resolve_device(None)
+    params = pt_lm_params.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(6))
+    state = adamw().init(params)
+    pt_lm_params.tree_map(lambda t: t.normal_(), state["m"])
+
+    def shardings(data):
+        mesh = _card_mesh((data, 1), ("data", "model"))
+        ps = pt_lm_params.shardings(cfg, mesh, SH.FSDP_RULES)
+        return ps, SH.opt_state_shardings("adamw", ps, state)
+
+    placed = SH.device_put((params, state), shardings(4))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, placed)
+    restored, _ = mgr.restore(placed)
+    moved = reshard(restored, shardings(2))
+    for _, t in pt_lm_params.tree_leaves(list(moved)):
+        assert len(t.shards) == 2 and all(s.device == dev for s in t.shards)
+    got = SH.device_get(moved, dev)
+    for (_, a), (_, b) in zip(pt_lm_params.tree_leaves(list(got)),
+                              pt_lm_params.tree_leaves([params, state])):
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b)
+
+
+def test_host_mesh_lists_the_visible_cards():
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+    m = make_host_mesh()
+    assert m.shape == {"data": torch.cuda.device_count()}
+    assert all(d.type == "cuda" for d in m.devices)
+    if torch.cuda.device_count() < 256:
+        with pytest.raises(ValueError, match="must be >= the product"):
+            make_production_mesh()
+
+
+def test_scan_over_one_axis_of_a_card_mesh_launches_k4():
+    """A block over the data axis of a (data 2, model 2) mesh of the card:
+    bitwise the two-shard mesh, through the masked-partials kernel."""
+    from repro_torch.kernels import reset_launch_counts
+
+    _, num, cat, meas, snips = _block(5000, seed=8, q_n=128)
+    two = _card_mesh((2, 2), ("data", "model"))
+    one = pt_exec.Mesh((num.device,) * 2)
+    reset_launch_counts()
+    got = pt_exec.eval_partials_sharded(two, num, cat, meas, snips,
+                                        axis="data")
+    assert launch_counts()["masked_partials"] >= 1
+    want = pt_exec.eval_partials_sharded(one, num, cat, meas, snips)
+    for f in ("sums", "sumsq", "count", "scanned"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

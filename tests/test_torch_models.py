@@ -221,12 +221,6 @@ def test_activate_every_act(act):
         np.asarray(jx_common.softcap(jnp.asarray(g * 30), 50.0)), **TOL_FN)
 
 
-def test_shard_ctx_refuses_a_mesh():
-    pt_common.ShardCtx()
-    with pytest.raises(NotImplementedError, match="distributed/sharding.py"):
-        pt_common.ShardCtx(mesh=object())
-
-
 # --------------------------------------------------------------- attention
 ATTN_CASES = {
     # arch, group, sub, window, S: causal with QKV bias; local with softcap

@@ -241,8 +241,12 @@ def test_mesh_resolves_and_validates_devices():
     assert mesh.shape == {"data": 2}
     with pytest.raises(ValueError, match="at least one device"):
         pt_exec.Mesh(())
-    with pytest.raises(ValueError, match="exactly one axis"):
+    with pytest.raises(ValueError, match="needs axis_sizes"):
         pt_exec.Mesh(("cpu",), ("data", "model"))
+    with pytest.raises(ValueError, match="do not cover"):
+        pt_exec.Mesh(("cpu",), ("data", "model"), (2, 1))
+    assert pt_exec.Mesh(("cpu",), ("data", "model"), (1, 1)).shape == \
+        {"data": 1, "model": 1}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pt_exec.Mesh(("cuda",))

@@ -104,12 +104,18 @@ def _hold_tree(got, want, what, rtol, atol):
 
 # ---------------------------------------------------------------- optimizers
 def _mixed_tree():
-    """hymba's smoke parameters, the groups of one layer in bfloat16."""
+    """hymba's smoke parameters, the groups of one layer in bfloat16.
+
+    Each package gets buffers of its own: ``jnp.asarray`` may take an
+    aligned numpy array without a copy, and the port's optimizers write
+    their parameters in place, so one shared buffer would let the port's
+    update reach the reference's parameters while its asynchronously
+    dispatched update still reads them."""
     cfg = pt_configs.get_smoke("hymba-1.5b")
     host, _ = _weights(cfg, seed=3)
     plan = cfg.layer_plan()
     jx_tree = jax.tree.map(jnp.asarray, host)
-    pt_tree = pt_params.tree_map(torch.from_numpy, host)
+    pt_tree = pt_params.tree_map(lambda a: torch.from_numpy(a.copy()), host)
     for gi, (_, repeat) in enumerate(plan):
         if repeat == 1:
             jx_tree["groups"][gi] = jax.tree.map(
@@ -142,7 +148,7 @@ def test_optimizer_matches_reference_on_stacked_and_single_leaves(name):
                  for p, s in shapes.items()}
         it = iter(grads[p] for p, _ in pt_params.tree_leaves(pp))
         pg = pt_params.tree_map(
-            lambda _: torch.from_numpy(np.asarray(next(it))), pp)
+            lambda _: torch.from_numpy(np.array(next(it))), pp)
         jg = jax.tree.map(jnp.asarray, pt_params.tree_map(_np, pg))
         jp, js = jx_update(jg, js, jp, jnp.float32(LR))
         out_p, out_s = po.update(pg, ps, pp, torch.tensor(LR))
