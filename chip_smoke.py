@@ -118,7 +118,24 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      pods' float32 gradients, the loss the pods' mean, step time, bytes
      exchanged and peak memory; qwen2.5-3b's parameters and AdamW state
      (full width, cut depth) placed under FSDP_RULES on (data 4, model 1),
-     through a checkpoint and resharded onto (data 2, model 1), bitwise.
+     through a checkpoint and resharded onto (data 2, model 1), bitwise;
+     the crossings between mesh positions of the MoE layer's first run and
+     the checked step recorded (``record_collectives``);
+ 14. the launch layer (plain PyTorch, no kernel of its own): the 66 launch
+     cells (33 x single and multi pod) over the abstract production meshes
+     of the ``meta`` device, a line each (probes and their multipliers,
+     argument bytes a position, whether they fit the card), the probes'
+     outputs evaluated on meta but for the kinds that cost seconds there;
+     five probes on the card at their cells' shapes (qwen2.5-3b's decode
+     layer at batch 128 over a 32,784-slot cache, its train layer forward
+     at 16 x 4096 tokens and vjp at 8 x 4096 (cut: 16 does not fit the
+     card), rwkv6-3b's chunk forward and vjp):
+     median time, FLOPs counted on the card equal to those on meta, the
+     roofline bound of their FLOPs and the bytes of their inputs and
+     outputs, peak memory; phase 13's recorded collective bytes: the
+     compressed step's collective-permute bytes a pod equal to phase 13's
+     bytes exchanged / 2, the MoE layer's all-reduce bytes equal to the
+     shapes' reckoning.
 The last two lines of standard output are the kernels' JSON record and the
 device record ``{"ok": true, "device": {...}}``.
 """
@@ -4815,6 +4832,7 @@ def _moe_full(seed, dev):
     import torch
     from repro_torch import configs
     from repro_torch.aqp.executor import Mesh
+    from repro_torch.launch import hlo_analysis as H
     from repro_torch.models import ffn as FF
     from repro_torch.models.common import ShardCtx, torch_dtype
 
@@ -4843,12 +4861,15 @@ def _moe_full(seed, dev):
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             runs, ms = [], []
-            for _ in range(2):
+            for i in range(2):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                runs.append(FF.moe_ffn(cfg, p, x, sctx))
+                with H.record_collectives() as rec:  # read by phase 14
+                    runs.append(FF.moe_ffn(cfg, p, x, sctx))
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    heard = H.collective_bytes(rec)
             peak = torch.cuda.max_memory_allocated()
             assert torch.equal(runs[0], runs[1]), (dp, tp)
             assert bool(torch.isfinite(runs[0]).all())
@@ -4866,7 +4887,8 @@ def _moe_full(seed, dev):
                 f"{n_expert_bytes / 1e9:.3f} GB of experts and the inputs)")
             out[f"{dp}x{tp}"] = dict(ms=ms, err_rms=err, near_ties=ties,
                                      capacity=cap, peak_gb=peak / 1e9,
-                                     peak_above_gb=(peak - base) / 1e9)
+                                     peak_above_gb=(peak - base) / 1e9,
+                                     collectives=heard)
             del runs, want
     del p, x
     return out
@@ -4883,6 +4905,7 @@ def _compressed_full(seed, dev):
     from repro_torch import configs
     from repro_torch.aqp.executor import Mesh
     from repro_torch.distributed import compression as C
+    from repro_torch.launch import hlo_analysis as H
     from repro_torch.models import params as PM
     from repro_torch.training import adamw
 
@@ -4957,7 +4980,8 @@ def _compressed_full(seed, dev):
         checked = C.make_compressed_train_step(cfg, opt, mesh, clip_norm=1e30)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, met = checked(params, state, batch, torch.tensor(COMP_LR))
+        with H.record_collectives() as rec_c:  # read by phase 14
+            _, _, met = checked(params, state, batch, torch.tensor(COMP_LR))
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         l0, l1 = rec["losses"]
@@ -4999,7 +5023,8 @@ def _compressed_full(seed, dev):
                 loss=loss, pod_losses=[l0, l1], losses=losses,
                 bound_ratio=worst["ratio"], max_abs=worst["abs"],
                 bytes_exchanged=exchanged, f32_bytes=4 * 2 * n_params,
-                peak_gb=peak / 1e9)
+                peak_gb=peak / 1e9, n_leaves=n_leaves,
+                collectives=H.collective_bytes(rec_c))
 
 
 def _elastic_full(seed, dev):
@@ -5099,6 +5124,212 @@ def distributed_layer(seed, smi):
     return out
 
 
+# ----------------------------------------------------------------- phase 14
+LAUNCH_REPS = 10  # timed calls of each probe on the card, after a warm-up
+# The probes phase 14 runs on the card at their cells' shapes (single pod),
+# with the cell's gradient accumulation (None: the cell's own, 16 over 16
+# data shards, a micro batch of 16). qwen2.5-3b's layer vjp at micro 16
+# ran out of the card's 79.2 GiB (66.7 GiB allocated, 16 GiB more asked:
+# the float32 scores of 16 x 16 heads x 4096^2 are 17.2 GB a tensor, and
+# the backward holds three of them beside the saved bf16 weights), so it
+# runs at accum 32, a micro batch of 8: cut.
+LAUNCH_PROBES = (("qwen2.5-3b", "decode_32k", "groups0_dec", None),
+                 ("qwen2.5-3b", "train_4k", "groups0_fwd", None),
+                 ("qwen2.5-3b", "train_4k", "groups0_vjp", 32),
+                 ("rwkv6-3b", "train_4k", "ssm_chunk_fwd", None),
+                 ("rwkv6-3b", "train_4k", "ssm_chunk_vjp", None))
+# The decode probe's position: past the 32,784-slot ring, so that every
+# slot is valid (``call_args`` fills slot positions with arange).
+LAUNCH_DECODE_POS = 40_000
+# Probe kinds phase 14 does not evaluate on meta, each seconds to minutes
+# there (the CPU tests hold them against the reference over 8 positions):
+# the whole model's vjp, the SSM archs' layer probes over a sequence (a
+# Python loop of chunk steps, ~13 ms a step on meta) and the MoE archs'
+# probes (a loop over all 256 or 512 positions, ~6 ms a position).
+LAUNCH_SSM = ("rwkv6-3b", "hymba-1.5b")
+LAUNCH_MOE = ("arctic-480b", "llama4-maverick-400b-a17b")
+
+
+def _slow_on_meta(cell, label):
+    if label == "microbatch_vjp" or cell.arch in LAUNCH_MOE:
+        return True
+    return (cell.arch in LAUNCH_SSM and cell.kind != "decode"
+            and not label.startswith("ssm_chunk"))
+
+
+def _tensor_leaves(tree):
+    import torch
+    from repro_torch.distributed.sharding import tree_map
+
+    out = []
+    tree_map(lambda t: out.append(t) if isinstance(t, torch.Tensor)
+             else None, tree)
+    return out
+
+
+def _launch_cells(card_bytes):
+    """(a) every cell over the abstract production meshes, its probes'
+    outputs evaluated on meta (but ``_slow_on_meta``'s)."""
+    from repro_torch.launch import cells as C
+    from repro_torch.launch.mesh import make_production_mesh
+
+    meshes = {mp: make_production_mesh(multi_pod=mp, device="meta")
+              for mp in (False, True)}
+    t0 = time.perf_counter()
+    cells = [C.build_cell(arch, shape, meshes[mp], mp)
+             for arch, shape in C.cell_list() for mp in (False, True)]
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = skipped = 0
+    fits = 0
+    for cell in cells:
+        arg_bytes = C.device_bytes(cell.args) + C.device_bytes(cell.kwargs)
+        parts = []
+        for label, mult, fn, args in cell.probes:
+            if _slow_on_meta(cell, label):
+                skipped += 1
+                parts.append(f"{label} x{mult} (not run on meta)")
+                continue
+            outs = _tensor_leaves(fn(*C.call_args(args,
+                                                  pos=LAUNCH_DECODE_POS)))
+            assert outs and all(t.device.type == "meta" for t in outs)
+            run += 1
+            out_gb = sum(t.numel() * t.element_size() for t in outs) / 1e9
+            parts.append(f"{label} x{mult} ({len(outs)} outputs, "
+                         f"{out_gb:.3f} GB)")
+        fit = arg_bytes <= card_bytes
+        fits += fit
+        pods = 2 if cell.meta["multi_pod"] else 1
+        log(f"cell {cell.arch} {cell.shape} pods {pods}: {cell.kind}, "
+            f"probes {'; '.join(parts) or 'none'}; arguments "
+            f"{arg_bytes / 1e9:.3f} GB a position, "
+            f"{'fits' if fit else 'does not fit'} the card's "
+            f"{card_bytes / 1e9:.3f} GB")
+    meta_s = time.perf_counter() - t0
+    assert len(cells) == 66
+    log(f"built {len(cells)} cells in {build_s:.3f} s; {run} probes "
+        f"evaluated on meta in {meta_s:.3f} s, {skipped} not (the whole "
+        f"model's vjp, the SSM archs' layer probes over a sequence, the MoE "
+        f"archs' probes: seconds to minutes each on meta; held over 8 "
+        f"positions by the CPU tests)")
+    return dict(cells=len(cells), fit=fits, build_s=build_s,
+                probes_on_meta=run, probes_not_on_meta=skipped,
+                meta_s=meta_s)
+
+
+def _flops(fn, args):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+    return fc.get_total_flops(), out
+
+
+def _launch_probe(arch, shape, label, accum, seed, dev):
+    """(b) one probe at its cell's shapes on the card: FLOPs (the card's
+    count equal to meta's), median time, the roofline bound of its FLOPs
+    and of the bytes of its inputs and outputs, peak memory."""
+    import torch
+    from repro_torch.launch import cells as C
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.roofline import roofline
+
+    cell = C.build_cell(arch, shape, make_production_mesh(device="meta"),
+                        False, accum=accum)
+    (fn, args), = [(p[2], p[3]) for p in cell.probes if p[0] == label]
+    meta_flops, _ = _flops(fn, C.call_args(args, pos=LAUNCH_DECODE_POS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    real = C.call_args(args, dev, torch.Generator(device=dev).manual_seed(
+        seed), pos=LAUNCH_DECODE_POS)
+    ins = _tensor_leaves(real)
+    in_bytes = sum(t.numel() * t.element_size() for t in ins)
+    flops, out = _flops(fn, real)
+    assert flops == meta_flops, (label, flops, meta_flops)
+    outs = _tensor_leaves(out)
+    assert all(bool(torch.isfinite(t).all()) for t in outs
+               if t.is_floating_point()), label
+    # outputs written into an input (the decode cache) are counted once
+    held = {t.data_ptr() for t in ins}
+    out_bytes = sum(t.numel() * t.element_size() for t in outs
+                    if t.data_ptr() not in held)
+    del out, outs
+    ms = time_ms(lambda: fn(*real), reps=LAUNCH_REPS, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    r = roofline(flops, in_bytes + out_bytes, 0)
+    bound_ms = r["step_time_lower_bound_s"] * 1e3
+    del real, ins
+    micro = cell.meta.get("micro")
+    log(f"{arch} {shape} {label}" + (f" (micro {micro})" if micro else "")
+        + f" on the card: {ms:.3f} ms (median of "
+        f"{LAUNCH_REPS}), {flops} FLOPs (meta {meta_flops}), "
+        f"{(in_bytes + out_bytes) / 1e9:.4f} GB in and out; bound "
+        f"{bound_ms:.3f} ms ({r['dominant']}), {bound_ms / ms:.4f} of it "
+        f"reached; peak memory {peak / 1e9:.3f} GB "
+        f"({(peak - base) / 1e9:.3f} GB above what was allocated before)")
+    return dict(ms=ms, flops=flops, meta_flops=meta_flops,
+                bytes=in_bytes + out_bytes, bound_ms=bound_ms,
+                dominant=r["dominant"], share=bound_ms / ms,
+                peak_gb=peak / 1e9, micro=micro,
+                mult=[p[1] for p in cell.probes if p[0] == label][0])
+
+
+def _launch_collectives(e2e13):
+    """(c) the crossings phase 13's calls reported, against the bytes it
+    counted and the shapes' reckoning."""
+    from repro_torch import configs
+    from repro_torch.models.common import torch_dtype
+
+    cfg = configs.get(MOE_ARCH)
+    width = cfg.d_model * torch_dtype(cfg.compute_dtype).itemsize
+    comp = e2e13["compressed"]
+    pods = 2
+    got = comp["collectives"]
+    want = comp["bytes_exchanged"] // pods
+    log(f"compressed step (phase 13), per position: {json.dumps(got)}")
+    assert got["bytes_by_kind"]["collective-permute"] == want, (got, want)
+    assert got["op_counts"]["collective-permute"] == 2 * comp["n_leaves"]
+    assert got["bytes_by_kind"]["all-reduce"] == 4  # the loss' pmean
+    out = {"compressed": got}
+    for dp, tp in MOE_MESHES:
+        heard = e2e13["moe"][f"{dp}x{tp}"]["collectives"]
+        rows = MOE_B * MOE_S // dp
+        log(f"{MOE_ARCH} MoE layer over (data {dp}, model {tp}) (phase 13), "
+            f"per position: {json.dumps(heard)}")
+        assert heard["bytes_by_kind"] == {"all-reduce": rows * width}
+        assert heard["op_counts"] == {"all-reduce": 1}
+        out[f"moe {dp}x{tp}"] = heard
+    log(f"collective-permute bytes a pod of the compressed step "
+        f"{got['bytes_by_kind']['collective-permute']:.0f} = phase 13's "
+        f"{comp['bytes_exchanged']} bytes exchanged / {pods}")
+    return out
+
+
+def launch_layer(seed, smi, e2e13):
+    """Phase 14: the launch layer (cells, probes, collective bytes)."""
+    import torch
+    from repro_torch.core.types import resolve_device
+
+    dev = resolve_device(None)
+    log("== phase 14: the launch layer (66 cells, five probes on the card, "
+        "collective bytes of phase 13's calls)")
+    log(f"card: {smi}")
+    t_phase = time.perf_counter()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    out = {"cells": _launch_cells(card_bytes), "probes": {}}
+    for i, (arch, shape, label, accum) in enumerate(LAUNCH_PROBES):
+        out["probes"][f"{arch} {shape} {label}"] = _launch_probe(
+            arch, shape, label, accum, seed + i, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["collectives"] = _launch_collectives(e2e13)
+    out["card"] = smi
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5154,6 +5385,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     e2e13 = distributed_layer(args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e14 = launch_layer(args.seed, smi, e2e13)
+    for rec in [e2e13["compressed"]] + [e2e13["moe"][f"{dp}x{tp}"]
+                                        for dp, tp in MOE_MESHES]:
+        rec.pop("collectives")  # phase 14's line prints them
     serve_w, refit_w = wide_counts["serve"], wide_counts["refit"]
 
     def at(shape, rec):  # a kernel's record at a wide shape
@@ -5257,7 +5494,7 @@ def main():
         f" CUDA vs CPU {json.dumps(worst)}; wide CUDA vs CPU "
         f"{json.dumps(worst_wide)}; phase 10 {json.dumps(e2e10)};"
         f" phase 11 {json.dumps(e2e11)}; phase 12 {json.dumps(e2e12)};"
-        f" phase 13 {json.dumps(e2e13)};"
+        f" phase 13 {json.dumps(e2e13)}; phase 14 {json.dumps(e2e14)};"
         f" total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

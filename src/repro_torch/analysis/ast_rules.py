@@ -93,11 +93,19 @@ IDLE_KEEP = {
                                "visible cards (idle in the reference too); "
                                "tests/test_torch_elastic.py",
     "repro_torch.launch.roofline": "the H100 roofline terms and model "
-                                   "FLOPs; chip_smoke.py phase 11 reads "
-                                   "model_flops; its importers in the "
-                                   "reference (launch/cells.py, "
-                                   "launch/hlo_analysis.py) are not ported "
-                                   "yet",
+                                   "FLOPs (idle in the reference too: its "
+                                   "dry-run driver was deleted); "
+                                   "chip_smoke.py phases 11 and 14 and "
+                                   "tests/test_torch_launch.py",
+    "repro_torch.launch.cells": "the dry-run cells, (arch x shape) -> step, "
+                                "abstract sharded inputs and probes (idle "
+                                "in the reference too); chip_smoke.py "
+                                "phase 14 and tests/test_torch_launch*.py",
+    "repro_torch.launch.hlo_analysis": "collective-byte accounting of the "
+                                       "crossings between mesh positions "
+                                       "(idle in the reference too); "
+                                       "chip_smoke.py phases 13-14 and "
+                                       "tests/test_torch_launch.py",
 }
 
 

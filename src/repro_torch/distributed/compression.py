@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import tree_map
+from repro_torch.distributed.sharding import report_collective, tree_map
 from repro_torch.models.common import ShardCtx
 from repro_torch.models.params import tree_leaves
 from repro_torch.models.params import tree_map as params_map
@@ -55,6 +55,8 @@ def ppermute(xs, mesh, axis: str, perm):
     out = [None] * len(devices)
     for src, dst in perm:
         out[dst] = tree_map(lambda t: t.to(devices[dst]), xs[src])
+    if perm:  # what one position receives: a collective-permute a tensor
+        report_collective("collective-permute", xs[perm[0][0]])
     return [tree_map(torch.zeros_like, xs[i]) if o is None else o
             for i, o in enumerate(out)]
 
@@ -148,6 +150,7 @@ def make_compressed_train_step(cfg, opt, mesh, *, accum: int = 1,
         loss = losses[0]
         for x in losses[1:]:  # the pods' losses in pod order
             loss = loss + x.to(loss.device)
+        report_collective("all-reduce", loss)  # the reference's pmean
         it = iter(means)
         grads = params_map(lambda _: next(it), params)
         del means, it

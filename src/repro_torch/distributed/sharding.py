@@ -26,7 +26,10 @@ counterparts live here, over ``repro_torch.aqp.executor.Mesh``:
     caches write in place: a shared buffer would take their writes once
     per replica); ``device_get`` assembles the global tensor.
 The placement is one process's (the reference's is single-controller
-too): no collective runs, a shard moves with ``Tensor.to``.
+too): no collective runs, a shard moves with ``Tensor.to``. The places
+where a value crosses between mesh positions call ``report_collective``
+with the collective XLA runs there, which
+``repro_torch.launch.hlo_analysis.record_collectives`` counts.
 """
 from __future__ import annotations
 
@@ -194,6 +197,19 @@ class ShardedTensor:
         return tuple(ShardedTensor(tuple(p[i] for p in parts), sharding,
                                    self.shape[1:], self.dtype)
                      for i in range(self.shape[0]))
+
+
+# The listeners ``report_collective`` tells; empty unless a recording is on.
+COLLECTIVE_LISTENERS = []
+
+
+def report_collective(kind: str, tree):
+    """Tell each listener that the tensors of ``tree`` crossed between mesh
+    positions as one ``kind`` collective (an HLO op name) apiece, each as
+    large as what one position holds after it. A logical crossing is
+    reported even where both positions are one card."""
+    for listener in COLLECTIVE_LISTENERS:
+        listener(kind, tree)
 
 
 def _is_tree(x) -> bool:

@@ -7,7 +7,9 @@ for the int8 gradient exchange that crosses it).
 
 Functions, not module constants: importing this module never touches CUDA
 state. A mesh is the visible cards (``cuda:0``, ``cuda:1``, ...); the CPU
-only when the caller asks for it with ``device="cpu"``.
+only when the caller asks for it with ``device="cpu"``. ``device="meta"``
+stands at every position: an abstract mesh of any size, whose tensors
+have shapes and no storage (``launch.cells``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ def _visible(device=None):
 
 def _make_mesh(shape, axes, device=None):
     devices = _visible(device)
+    if devices[0].type == "meta":
+        devices = devices * math.prod(shape)
     if len(devices) < math.prod(shape):
         raise ValueError(f"Number of devices {len(devices)} must be >= the "
                          f"product of mesh_shape {tuple(shape)}")

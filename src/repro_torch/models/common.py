@@ -9,7 +9,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
                                               ShardedTensor, device_get,
-                                              tree_map)
+                                              report_collective, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +41,16 @@ class ShardCtx:
         if not (self.enabled and self.gather_weights):
             return p
         home = self.mesh.devices[0]
-        return tree_map(lambda w: device_get(w, home)
-                         if isinstance(w, ShardedTensor) else w, p)
+
+        def gather(w):
+            if not isinstance(w, ShardedTensor):
+                return w
+            out = device_get(w, home)
+            if any(k > 1 for k in w.sharding.shard_counts(w.ndim)):
+                report_collective("all-gather", out)
+            return out
+
+        return tree_map(gather, p)
 
     def constrain(self, x, *spec):
         if self.enabled:

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import report_collective
 from repro_torch.models.common import ShardCtx, activate
 
 
@@ -134,6 +135,9 @@ def _moe_mesh(cfg, p, x_flat, sctx: ShardCtx):
                                 .to(dev), j * e_per, e_per, cap)
             total = part if total is None else total + part.to(total.device)
         outs.append(total.to(x_flat.device))
+    # the sum over the model axis: the reference's psum of a position's
+    # (rows, d) partial, one a call
+    report_collective("all-reduce", outs[0])
     return torch.cat(outs)
 
 

@@ -73,7 +73,11 @@ Inputs are made from a seed with numpy. Tolerances:
     bytes, where the plain scan under the ``fused`` tag is flagged; the
     improve ladder gives one K2 launch signature (with the built library's
     ``gp_plan``) per bucket pair; the mask build over 4 and 8 shards of the
-    card has no cross-shard op.
+    card has no cross-shard op;
+  - the launch layer on the card: qwen2.5-3b decode_32k's layer probe at
+    its cell's shapes and rwkv6-3b's chunk probes, the FLOPs
+    ``FlopCounterMode`` counts on the card equal to those on meta; the
+    collective recorder's bytes for an MoE over a (2, 2) mesh of the card.
 """
 import numpy as np
 import pytest
@@ -1967,3 +1971,87 @@ def test_scan_over_one_axis_of_a_card_mesh_launches_k4():
     want = pt_exec.eval_partials_sharded(one, num, cat, meas, snips)
     for f in ("sums", "sumsq", "count", "scanned"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+# ------------------------------------------------------------ launch layer
+def _flops(fn, args):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+    return fc.get_total_flops(), out
+
+
+def test_launch_decode_probe_on_the_card_counts_the_meta_flops():
+    """qwen2.5-3b decode_32k's layer probe at its cell's shapes on the card
+    (batch 128, a 32,784-slot bf16 cache: 4.3 GB of k and v): finite
+    outputs of the reference's shapes, the cache written in place, and
+    the FLOPs ``FlopCounterMode`` counts on the card equal to those it
+    counts on meta."""
+    from repro_torch.launch import cells as C
+    from repro_torch.launch.mesh import make_production_mesh
+
+    dev = pt_types.resolve_device(None)
+    cell = C.build_cell("qwen2.5-3b", "decode_32k",
+                        make_production_mesh(device="meta"), False)
+    ((label, mult, fn, args),) = cell.probes
+    assert (label, mult) == ("groups0_dec", 35)
+    meta_flops, _ = _flops(fn, C.call_args(args, pos=40000))
+    g = torch.Generator(device=dev).manual_seed(0)
+    real = C.call_args(args, dev, g, pos=40000)
+    flops, (out, cache) = _flops(fn, real)
+    assert flops == meta_flops > 0
+    assert out.shape == (128, 1, 2048) and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    assert cache is real[2]
+    # slot_pos starts as arange (every slot valid); the step writes slot
+    # 40000 % 32784
+    assert int(cache["sub0"]["attn"]["slot_pos"][40000 % 32784]) == 40000
+
+
+def test_launch_chunk_probes_on_the_card_count_the_meta_flops():
+    """rwkv6-3b train_4k's chunk probes (float32, micro 16, a chunk of
+    16): the card's FLOPs equal meta's, gradients finite."""
+    from repro_torch.launch import cells as C
+    from repro_torch.launch.mesh import make_production_mesh
+
+    dev = pt_types.resolve_device(None)
+    cell = C.build_cell("rwkv6-3b", "train_4k",
+                        make_production_mesh(device="meta"), False)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for label, _, fn, args in cell.probes:
+        if not label.startswith("ssm_chunk"):
+            continue
+        meta_flops, _ = _flops(fn, C.call_args(args))
+        flops, out = _flops(fn, C.call_args(args, dev, g))
+        assert flops == meta_flops > 0, label
+        for t in pt_lm_params.tree_leaves(list(out)):
+            assert bool(torch.isfinite(t[1]).all()), label
+
+
+def test_launch_moe_collectives_on_a_card_listed_four_times():
+    """arctic-smoke's MoE layer over a (data 2, model 2) mesh of the card
+    listed four times: one all-reduce of (rows, d) float32 a layer call,
+    wire bytes twice that; recording changes no output."""
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.models import ffn as pt_lm_ffn
+    from repro_torch.models.common import ShardCtx
+
+    cfg = pt_configs.get_smoke("arctic-480b")
+    dev = pt_types.resolve_device(None)
+    params = pt_lm_params.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(2))
+    p = pt_lm_params.tree_map(lambda t: t[0],
+                              params["groups"][0]["sub0"]["moe"])
+    x = torch.randn((4, 8, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    sctx = ShardCtx(mesh=_card_mesh((2, 2), ("data", "model")))
+    plain = pt_lm_ffn.moe_ffn(cfg, p, x, sctx)
+    with H.record_collectives() as rec:
+        got = pt_lm_ffn.moe_ffn(cfg, p, x, sctx)
+    assert torch.equal(got, plain)
+    out = H.collective_bytes(rec)
+    rows = 4 * 8 // 2
+    assert out["bytes_by_kind"] == {"all-reduce": rows * cfg.d_model * 4}
+    assert out["op_counts"] == {"all-reduce": 1}
+    assert out["wire_bytes_total"] == 2 * rows * cfg.d_model * 4
