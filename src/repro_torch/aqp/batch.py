@@ -35,6 +35,7 @@ from repro_torch.aqp.plan import (
     replay_query,
 )
 from repro_torch.core.types import SnippetBatch
+from repro_torch.utils import tracing
 
 __all__ = ["BatchExecutor", "BatchStats"]
 
@@ -109,12 +110,13 @@ class BatchExecutor:
         if not live_idx:  # every query was served from the cache
             self.stats = BatchStats()
             return results
-        wp = plan_workload(eng, [queries[i] for i in live_idx])
-        self.stats = wp.stats
-        phys_main = PhysicalPlan(eng.batches, wp.fused, self._eval,
-                                 stats=wp.stats)
-        phys_raw = PhysicalPlan(eng.batches, wp.fused_raw, plain_eval,
-                                stats=wp.stats)
+        with tracing.span("plan", queries=len(live_idx)):
+            wp = plan_workload(eng, [queries[i] for i in live_idx])
+            self.stats = wp.stats
+            phys_main = PhysicalPlan(eng.batches, wp.fused, self._eval,
+                                     stats=wp.stats)
+            phys_raw = PhysicalPlan(eng.batches, wp.fused_raw, plain_eval,
+                                    stats=wp.stats)
         for lp in wp.logical:
             deadline = (None if deadline_s is None
                         else time.monotonic() + float(deadline_s))

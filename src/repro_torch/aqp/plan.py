@@ -43,6 +43,7 @@ from repro_torch.core.types import (
     snippet_key,
 )
 from repro_torch.kernels.fused_masked_scan.ops import eval_partials_fused
+from repro_torch.utils import tracing
 from repro_torch.utils.stats import confidence_multiplier
 
 
@@ -248,7 +249,9 @@ class PhysicalPlan:
         while len(self._snapshots) <= b:
             i = len(self._snapshots)
             block = self.batches.relation.take(self.batches.batch_rows[i])
-            part = self.eval_fn(block, self.padded)
+            with tracing.span("scan.block", snippets=self.padded.n,
+                              tuples=block.cardinality):
+                part = self.eval_fn(block, self.padded)
             self._snapshots.append(
                 part if not self._snapshots else self._snapshots[-1] + part
             )
@@ -256,16 +259,18 @@ class PhysicalPlan:
                 self.stats.eval_calls += 1
                 self.stats.batches_scanned += 1
                 self.stats.tuples_scanned += len(self.batches.batch_rows[i])
-        if b not in self._estimates:
-            theta, beta2, _ = estimates_from_partials(
-                self._snapshots[b], self.padded
-            )
-            self._estimates[b] = (theta, beta2)
-        theta, beta2 = self._estimates[b]
-        if rows is None:
-            return RawAnswer(theta[: self.n], beta2[: self.n])
-        idx = torch.as_tensor(np.asarray(rows, np.int64), device=theta.device)
-        return RawAnswer(theta[idx], beta2[idx])
+        with tracing.span("replay.estimate"):
+            if b not in self._estimates:
+                theta, beta2, _ = estimates_from_partials(
+                    self._snapshots[b], self.padded
+                )
+                self._estimates[b] = (theta, beta2)
+            theta, beta2 = self._estimates[b]
+            if rows is None:
+                return RawAnswer(theta[: self.n], beta2[: self.n])
+            idx = torch.as_tensor(np.asarray(rows, np.int64),
+                                  device=theta.device)
+            return RawAnswer(theta[idx], beta2[idx])
 
 
 def plain_eval(block, padded: SnippetBatch) -> Partials:
@@ -333,7 +338,9 @@ def replay_rounds(
                   else (max_batches - 1,))
         for b in rounds:
             raw = physical.raw_at(b, lp.rows)
-            cells = Q.assemble_results(lp.plan, raw.theta, raw.beta2, card)
+            with tracing.span("replay.assemble"):
+                cells = Q.assemble_results(lp.plan, raw.theta, raw.beta2,
+                                           card)
             used = b + 1
             res = QueryResult(
                 cells, used, engine._tuples(used), False, lp.reason,
@@ -357,16 +364,18 @@ def replay_rounds(
         used = b + 1
         health: Dict[str, str] = {}
         if cfg.learning:
-            improved = engine.store.improve_groups(
-                lp.plan.snippets, raw, use_kernels=cfg.use_kernels,
-                health=health)
+            with tracing.span("replay.improve"):
+                improved = engine.store.improve_groups(
+                    lp.plan.snippets, raw, use_kernels=cfg.use_kernels,
+                    health=health)
         else:
             improved = ImprovedAnswer(
                 raw.theta, raw.beta2, raw.theta, raw.beta2,
                 torch.zeros((n,), dtype=torch.bool, device=raw.theta.device),
             )
-        cells = Q.assemble_results(lp.plan, improved.theta, improved.beta2,
-                                   card)
+        with tracing.span("replay.assemble"):
+            cells = Q.assemble_results(lp.plan, improved.theta,
+                                       improved.beta2, card)
         res = QueryResult(
             cells, used, engine._tuples(used), True,
             snippet_answer=improved, plan=lp.plan,
@@ -384,7 +393,8 @@ def replay_rounds(
             )
         if final:
             if cfg.learning:
-                engine.store.record(lp.plan.snippets, raw)
+                with tracing.span("replay.record"):
+                    engine.store.record(lp.plan.snippets, raw)
             if intel is not None:
                 # After record: Synopsis.add bumps its generation at enqueue
                 # time, so the cached entry's generation snapshot includes
@@ -405,11 +415,14 @@ def replay_query(
     stop_delta: Optional[float] = None,
     deadline: Optional[float] = None,
 ) -> QueryResult:
-    """One-shot lifecycle: the final round of ``replay_rounds``."""
+    """One-shot lifecycle: the final round of ``replay_rounds``, inside
+    the query's ``replay.query`` span."""
     result = None
-    for result, _ in replay_rounds(
-        engine, lp, physical, target_rel_error=target_rel_error,
-        max_batches=max_batches, stop_delta=stop_delta, deadline=deadline,
-    ):
-        pass
+    with tracing.span("replay.query", request=id(lp.query)):
+        for result, _ in replay_rounds(
+            engine, lp, physical, target_rel_error=target_rel_error,
+            max_batches=max_batches, stop_delta=stop_delta,
+            deadline=deadline,
+        ):
+            pass
     return result

@@ -66,6 +66,7 @@ from repro_torch.core.types import (
     resolve_device,
     to_numpy,
 )
+from repro_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -197,32 +198,34 @@ class VerdictEngine:
                 need.append(i)
         if not need:
             return out
-        first = self.batches.relation.take(self.batches.batch_rows[0])
-        plans = [
-            Q.decompose(
-                self.schema,
-                Q.AggQuery(aggs=(Q.AggSpec("COUNT"),),
-                           predicates=queries[i].predicates),
-            )
-            for i in need
-        ]
-        fused = SnippetBatch.concat([p.snippets for p in plans])
-        mask_all = to_numpy(
-            predicate_mask(first.num_normalized, first.cat,
-                           pad_snippets(fused).to(self.device))
-        ).astype(bool)
-        cat_first = to_numpy(first.cat)
-        off = 0
-        for i, plan in zip(need, plans):
-            q = queries[i]
-            mask = mask_all[:, off]
-            off += plan.snippets.n
-            cats = cat_first[mask][:, list(q.groupby)]
-            if cats.size == 0:
-                out[i] = tuple()
-                continue
-            uniq = np.unique(cats, axis=0)
-            out[i] = tuple(tuple(int(v) for v in row) for row in uniq)
+        with tracing.span("plan.discover", queries=len(need),
+                          tuples=len(self.batches.batch_rows[0])):
+            first = self.batches.relation.take(self.batches.batch_rows[0])
+            plans = [
+                Q.decompose(
+                    self.schema,
+                    Q.AggQuery(aggs=(Q.AggSpec("COUNT"),),
+                               predicates=queries[i].predicates),
+                )
+                for i in need
+            ]
+            fused = SnippetBatch.concat([p.snippets for p in plans])
+            mask_all = to_numpy(
+                predicate_mask(first.num_normalized, first.cat,
+                               pad_snippets(fused).to(self.device))
+            ).astype(bool)
+            cat_first = to_numpy(first.cat)
+            off = 0
+            for i, plan in zip(need, plans):
+                q = queries[i]
+                mask = mask_all[:, off]
+                off += plan.snippets.n
+                cats = cat_first[mask][:, list(q.groupby)]
+                if cats.size == 0:
+                    out[i] = tuple()
+                    continue
+                uniq = np.unique(cats, axis=0)
+                out[i] = tuple(tuple(int(v) for v in row) for row in uniq)
         return out
 
     # ------------------------------------------------------------- execute

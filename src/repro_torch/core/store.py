@@ -43,6 +43,7 @@ from repro_torch.core.types import (
     resolve_device,
     to_numpy,
 )
+from repro_torch.utils import tracing
 
 AggKey = Tuple[int, int]
 
@@ -199,7 +200,8 @@ class SynopsisStore:
         groups = []
         for key, rows in group_rows(snippets):
             syn = self.for_key(key)
-            syn.drain()
+            with tracing.span("store.drain_wait"):
+                syn.drain()
             if syn.quarantined:
                 if health is not None:
                     health[state_key(key)] = syn.quarantine_reason

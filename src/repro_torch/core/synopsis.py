@@ -60,6 +60,7 @@ from repro_torch.core.types import (
 )
 from repro_torch.ft import faults
 from repro_torch.kernels.gp_batch_infer import ops as gp_ops
+from repro_torch.utils import tracing
 
 REFACTOR_EVERY = 128  # full O(n^3) rebuild cadence (numerical hygiene)
 JITTER = 1e-10
@@ -218,6 +219,7 @@ class _IngestQueue:
         self._apply = apply_fn
         self.max_pending = int(max_pending)
         self.high_water = 0
+        # (item, its enqueue time while tracing is on, else None) pairs
         self._pending: collections.deque = collections.deque()
         self._cv = threading.Condition()
         self._outstanding = 0
@@ -229,7 +231,7 @@ class _IngestQueue:
         with self._cv:
             if self._outstanding >= self.max_pending:
                 return False
-            self._pending.append(item)
+            self._pending.append((item, tracing.stamp()))
             self._outstanding += 1
             self.high_water = max(self.high_water, self._outstanding)
             if self._thread is None:
@@ -250,7 +252,8 @@ class _IngestQueue:
                         return
                 batch = list(self._pending)
                 self._pending.clear()
-            for item in batch:
+            for item, queued in batch:
+                tracing.record("ingest.queued", queued)
                 try:
                     self._apply(*item)  # guarded: quarantines, never raises
                 finally:
@@ -438,7 +441,8 @@ class Synopsis:
                 self._unapplied.append(item)
                 return
         try:
-            self._apply_add(*item)
+            with tracing.span("ingest.apply", snippets=len(item[0])):
+                self._apply_add(*item)
         except Exception as e:  # noqa: BLE001 — quarantine, never raise
             self._mark_quarantined(e, item)
 

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.utils import tracing
 from repro_torch.utils.stats import confidence_multiplier
 
 AVG = 0
@@ -44,8 +45,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def to_numpy(x) -> np.ndarray:
-    """Host copy of a tensor (or pass-through for array-likes)."""
+    """Host copy of a tensor (or pass-through for array-likes). The query
+    path's copies from the device all come through here, and are counted
+    (``host_copy.count``, ``host_copy.bytes``) while tracing is on."""
     if isinstance(x, torch.Tensor):
+        tracing.host_copy(x)
         return x.detach().cpu().numpy()
     return np.asarray(x)
 

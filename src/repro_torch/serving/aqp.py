@@ -39,6 +39,7 @@ from typing import Dict, List, Optional
 from repro_torch.aqp.batch import BatchExecutor, BatchStats
 from repro_torch.aqp.queries import AggQuery
 from repro_torch.ft import faults
+from repro_torch.utils import tracing
 from repro_torch.verdict.answer import FailedAnswer
 
 
@@ -48,7 +49,9 @@ class Ticket:
 
     The result is stored on the ticket itself, so a long-lived service
     retains nothing once callers drop their tickets. ``resolutions`` counts
-    resolve calls: the exactly-once contract.
+    resolve calls: the exactly-once contract. While tracing is on
+    (``repro_torch.utils.tracing``) the ticket keeps its submit time and
+    its query's id, the request id of its spans.
     """
 
     _service: "AqpService"
@@ -57,6 +60,8 @@ class Ticket:
     resolutions: int = 0
     _event: threading.Event = dataclasses.field(
         default_factory=threading.Event)
+    _submitted: Optional[float] = None
+    _request: Optional[int] = None
 
     def result(self, timeout: Optional[float] = None):
         """The query's answer (flushes the queue if still pending).
@@ -66,10 +71,11 @@ class Ticket:
         ticket's event instead of returning a premature None.
         """
         if not self._done:
-            self._service.flush()
-        if not self._event.wait(timeout):
-            raise TimeoutError("ticket unresolved after "
-                               f"{timeout}s (flush still in flight?)")
+            self._service._flush("result")
+        with tracing.span("service.event_wait", request=self._request):
+            if not self._event.wait(timeout):
+                raise TimeoutError("ticket unresolved after "
+                                   f"{timeout}s (flush still in flight?)")
         return self._result
 
     def _resolve(self, result) -> None:
@@ -143,9 +149,12 @@ class AqpService:
         one lock, so concurrent submitters neither lose an entry nor
         double-flush a batch.
         """
+        submitted = tracing.stamp()
         if not isinstance(query, AggQuery) and hasattr(query, "build"):
             query = query.build()
         ticket = Ticket(self)
+        if submitted is not None:
+            ticket._submitted, ticket._request = submitted, id(query)
         # Workload-intelligence pre-screen: a cache hit resolves the ticket
         # at once and never occupies a microbatch slot. The lookup mutates
         # shared cache state, so it runs under the engine lock.
@@ -168,7 +177,7 @@ class AqpService:
             self._queue.append((query, ticket))
             full = len(self._queue) >= self.max_batch
         if full:
-            self.flush()
+            self._flush("submit")
         return ticket
 
     def _execute_slice(self, queries: List[AggQuery]) -> List:
@@ -238,40 +247,63 @@ class AqpService:
         engine lock; the queue swap is atomic, so two racing flushes split
         the pending work instead of executing it twice.
         """
-        with self._exec_lock:
+        return self._flush("flush")
+
+    def _flush(self, caller: str) -> List:
+        """``flush``; ``caller`` labels the span of its wait for the engine
+        lock (``result``, ``submit``, ``execute`` or ``flush``)."""
+        with tracing.span("service.lock_wait", caller=caller):
+            self._exec_lock.acquire()
+        try:
             with self._lock:
                 batch, self._queue = self._queue, []
             if not batch:
+                tracing.count("service.empty_flush")
                 return []
-            queries = [q for q, _ in batch]
-            results: List = [None] * len(batch)
-            counts: Dict[int, int] = {}
-            try:
-                self._resolve(queries, list(range(len(batch))), results,
-                              counts)
-            finally:
-                # Backstop: no ticket may hang or carry None, even if the
-                # isolation machinery itself raised.
-                out = []
-                for (_, ticket), res in zip(batch, results):
-                    if res is None:
-                        res = FailedAnswer(
-                            error="flush aborted before this query resolved",
-                            error_type="RuntimeError", attempts=0)
-                    elif (self.result_wrapper is not None
-                          and not isinstance(res, FailedAnswer)):
-                        res = self.result_wrapper(res)
-                    ticket._resolve(res)
-                    out.append(res)
-                self.last_stats = self.executor.stats
-                with self._lock:
-                    self.flushes += 1
+            requests = (tuple(t._request for _, t in batch)
+                        if tracing.enabled() else None)
+            with tracing.span("service.flush", request=requests,
+                              queries=len(batch)):
+                return self._run_batch(batch)
+        finally:
+            self._exec_lock.release()
+
+    def _run_batch(self, batch: List[tuple]) -> List:
+        """Run one swapped-out queue under the engine lock and resolve its
+        tickets."""
+        start = tracing.stamp()
+        for _, ticket in batch:
+            tracing.record("service.queued", ticket._submitted, start,
+                           request=ticket._request)
+        queries = [q for q, _ in batch]
+        results: List = [None] * len(batch)
+        counts: Dict[int, int] = {}
+        try:
+            self._resolve(queries, list(range(len(batch))), results,
+                          counts)
+        finally:
+            # Backstop: no ticket may hang or carry None, even if the
+            # isolation machinery itself raised.
+            out = []
+            for (_, ticket), res in zip(batch, results):
+                if res is None:
+                    res = FailedAnswer(
+                        error="flush aborted before this query resolved",
+                        error_type="RuntimeError", attempts=0)
+                elif (self.result_wrapper is not None
+                      and not isinstance(res, FailedAnswer)):
+                    res = self.result_wrapper(res)
+                ticket._resolve(res)
+                out.append(res)
+            self.last_stats = self.executor.stats
+            with self._lock:
+                self.flushes += 1
         return out
 
     def execute(self, queries: List[AggQuery]) -> List:
         """Submit a workload and return its results in order."""
         tickets = [self.submit(q) for q in queries]
-        self.flush()
+        self._flush("execute")
         return [t.result() for t in tickets]
 
     def drain(self):
