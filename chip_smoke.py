@@ -22,7 +22,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      sets past a block's shared memory (a dim of 30,000 values, and one of
      100,000 on a small block), the SE covariance at 12 numeric dims (the
      kernels for any l: general, Gram with and without derivatives, the
-     reduction, and the device memory a call takes);
+     reduction, and the device memory a call takes); group discovery at
+     the SF10 cell's first batch (599,861 tuples) with 1 and 16 probes on
+     its table and sorted routes, bitwise the plain version;
   3. the main path at a size users run: TPC-H SF1 lineitem cardinality
      (6,001,215 rows), capacity 2000, a 2000-query warm-up through
      ``execute_many`` and 200 queries served one by one through ``execute``;
@@ -178,6 +180,9 @@ K2_REPLACES = "src/repro/kernels/gp_batch_infer/kernel.py:27"
 K4_REPLACES = "src/repro/kernels/fused_masked_scan/kernel.py:133"
 K5_REPLACES = "src/repro/kernels/range_mask_agg/kernel.py:25"
 K3_REPLACES = "src/repro/kernels/se_covariance/kernel.py:35"
+# K6 replaces no Pallas kernel: the reference's host np.unique over its jnp
+# predicate mask.
+K6_REPLACES = "src/repro/core/engine.py:200"
 SYNOPSIS_C = 2000  # synopsis capacity of phases 3 and 6 (a full rebuild)
 PHASE4_REFIT_STEPS = 30  # phase 4 refits the CPU engine too: few steps
 SF1_BATCH_T = 60_013  # tuples in one sample batch of phase 3's SF1 sample
@@ -375,7 +380,8 @@ def phase_build():
                                           "rma_partials<18>", "rma_fold")),
                       ("se_covariance", ("<double, 3",
                                          "se_cov_any<double",
-                                         "se_cov_reduce_any<double"))):
+                                         "se_cov_reduce_any<double")),
+                      ("group_discovery", ("gd_mark",))):
         for fn, what in ptxas_summary(logs.get(src, "")).items():
             if any(k in fn for k in keys):
                 log(f"ptxas {src}: {fn}: {what}")
@@ -725,6 +731,137 @@ def check_k5(rel, seed):
         "library_ms is null for range_mask_agg: no single PyTorch call "
         "computes range compares times a mask folded against a payload"
         % WIDE_P)
+    return records
+
+
+GD_T = 599_861  # the first sample batch at TPC-H SF10 (the benchmark's cell)
+GD_CATS = (3, 2, 25)  # returnflag, linestatus, nation
+
+
+def _k6_inputs(n_probes, seed):
+    """The SF10 cell's first batch (3 numeric dims; returnflag, linestatus,
+    nation) on the card and ``n_probes`` COUNT probes over a window of the
+    first dim, grouped by returnflag (the cell's group-by template), one in
+    four by all three columns."""
+    import torch
+    from repro_torch.aqp import queries as Q
+    from repro_torch.core.types import Schema, SnippetBatch
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.uniform(0, 1, (GD_T, 3)), device="cuda")
+    codes = torch.as_tensor(np.stack(
+        [rng.integers(0, s, GD_T) for s in GD_CATS], 1).astype(np.int32),
+        device="cuda")
+    schema = Schema((0.0,) * 3, (1.0,) * 3, GD_CATS, 1)
+    snips, groupby = [], []
+    for p in range(n_probes):
+        a = rng.uniform(0, 0.8)
+        q = Q.AggQuery(aggs=(Q.AggSpec("COUNT"),), predicates=(
+            Q.NumRange(0, a, a + rng.uniform(0.035, 0.16)),))
+        snips.append(Q.decompose(schema, q).snippets)
+        groupby.append((0, 1, 2) if p % 4 == 3 else (0,))
+    return x, codes, SnippetBatch.concat(snips), groupby
+
+
+def _kernel_device_ms(fn, name, n=10, windows=3):
+    """The profiler's device time a launch of the kernels whose name holds
+    ``name``: the median over ``windows`` windows of ``n`` calls of the
+    mean over the launches each recorded; None where none recorded it."""
+    per = []
+    for _ in range(windows):
+        _, _, rec = device_profile(fn, n)
+        hit = [v for k, v in rec.items() if name in k]
+        if hit:
+            per.append(1e3 * sum(v[1] for v in hit) / sum(v[0] for v in hit))
+    return float(np.median(per)) if per else None
+
+
+def check_k6(seed):
+    """K6 at the SF10 cell's shape (599,861 tuples) with 1 and 16 probes,
+    on the table route (the bound as shipped) and the sorted route (the
+    bound cut to 0): presence and keys bitwise the plain version on the
+    card and bitwise on a repeat, one launch a call, the groups equal to
+    discovery on the CPU. Returns {(probes, route): record}."""
+    import torch
+    from repro_torch.core.engine import discover_groups
+    from repro_torch.kernels import RANGE_EPS, launch_counts
+    from repro_torch.kernels.group_discovery import ops as gd_ops
+    from repro_torch.kernels.group_discovery.ref import group_discovery_ref
+
+    log(f"-- K6 group_discovery (f64) at T={GD_T}, 1 and 16 probes, table "
+        "and sorted routes: presence and keys bitwise the plain version and "
+        "a repeat, one launch a call, groups equal to the CPU's")
+    shipped = gd_ops.GD_TABLE_KEYS
+    records = {}
+    for n in (1, 16):
+        x, codes, probes, groupby = _k6_inputs(n, seed + 31 + n)
+        lo = (probes.lo - RANGE_EPS).cuda()
+        hi = (probes.hi + RANGE_EPS).cuda()
+        member = probes.cat.cuda()
+        for route, bound in (("table", shipped), ("sorted", 0)):
+            gd_ops.GD_TABLE_KEYS = bound
+            try:
+                plan = gd_ops.discovery_plan(groupby, GD_CATS)
+                groups = discover_groups(x, codes, probes, groupby, GD_CATS)
+                want_groups = discover_groups(x.cpu(), codes.cpu(), probes,
+                                              groupby, GD_CATS)
+            finally:
+                gd_ops.GD_TABLE_KEYS = shipped
+            assert (plan.n_rows == 0) == (route == "table"), plan
+            assert groups == want_groups, f"K6 {route} P={n}: groups differ"
+            assert all(groups), "every probe admits some tuple"
+            meta = [torch.as_tensor(a, device="cuda")
+                    for a in (plan.gcol, plan.gstride, plan.route)]
+
+            def kernel():
+                return gd_ops.group_discovery(x, codes, lo, hi, member, plan)
+
+            def plain():
+                return group_discovery_ref(x, codes, lo, hi, member, *meta,
+                                           plan.n_keys, plan.n_rows)
+
+            before = launch_counts()["group_discovery"]
+            got = kernel()
+            assert launch_counts()["group_discovery"] == before + 1
+            again, want = kernel(), plain()
+            torch.cuda.synchronize()
+            for name, g, a, w in zip(("presence", "keys"), got, again, want):
+                assert torch.equal(g, w), f"K6 {route} P={n}: {name} differs"
+                assert torch.equal(a, w), f"K6 {route} P={n}: {name} repeat"
+            ms = time_ms(kernel, inner=10)
+            plain_ms = time_ms(plain, reps=5)
+            # Read once: the batch, the probes' bounds and sets, the plan;
+            # written once: the presence table and the sorted keys.
+            n_bytes = (x.numel() * 8 + codes.numel() * 4 + 2 * lo.numel() * 8
+                       + member.numel() + sum(m.numel() * 8 for m in meta)
+                       + plan.n_keys + plan.n_rows * GD_T * 8)
+            l, c, g = x.shape[1], codes.shape[1], plan.gcol.shape[1]
+            n_ops = GD_T * n * (2 * l + c + 2 * g)
+            rec = report("group_discovery", f"T={GD_T} P={n} {route}", ms,
+                         plain_ms, n_bytes, n_ops, "float64", 0.0)
+            rec["device_ms"] = dev = _kernel_device_ms(kernel, "gd_mark")
+            rec["launches_a_call"] = 1
+            t_host = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gd_ops.GD_TABLE_KEYS = bound
+                try:
+                    discover_groups(x, codes, probes, groupby, GD_CATS)
+                finally:
+                    gd_ops.GD_TABLE_KEYS = shipped
+                t_host.append(1e3 * (time.perf_counter() - t0))
+            rec["discover_ms"] = float(np.median(t_host))
+            log(f"  group_discovery P={n} {route}: key space {plan.n_keys}, "
+                f"sorted rows {plan.n_rows}; gd_mark device "
+                + ("not measured" if dev is None else
+                   f"{dev:.6f} ms, device share of bound "
+                   f"{rec['bound_ms'] / dev:.4f}")
+                + f"; a flush's whole discovery (host clock, launch, "
+                f"sort-unique, one copy, decode) {rec['discover_ms']:.6f} ms")
+            records[(n, route)] = rec
+    log("  library_ms is null for group_discovery: no single PyTorch call "
+        "marks group codes under range and membership tests")
     return records
 
 
@@ -2045,6 +2182,11 @@ def main_path(seed):
         f"{counts['se_cov_derivs']}, reductions {counts['se_cov_grad']}")
     assert counts["se_cov_matrix"] > 0 and counts["se_cov_gram"] > 0, counts
     assert counts["se_cov_derivs"] == 0 and counts["se_cov_grad"] == 0, counts
+    # One group discovery (one K6 launch) a query with a group-by.
+    n_grouped = sum(bool(q.groupby) for q in serve)
+    log(f"K6 launches {counts['group_discovery']}, one for each of the "
+        f"{n_grouped} group-by queries")
+    assert counts["group_discovery"] == n_grouped > 0, counts
     eng.drain()
     _assert_healthy(eng)
     covered, n_cells, med = _coverage(rel, results)
@@ -2387,6 +2529,9 @@ def facade_and_mesh(rel, cfg, seed):
     assert msh["counts"]["gp_batch_infer"] > 0, msh["counts"]
     assert loc["counts"]["fused_masked_scan"] == len(loc["blocks"]) > 0
     assert loc["counts"]["masked_partials"] == 0, loc["counts"]
+    # Group discovery runs on the engine's device, whatever the placement.
+    assert (msh["counts"]["group_discovery"]
+            == loc["counts"]["group_discovery"] > 0), msh["counts"]
     # Each block pads to the next power of two (65,536 for an SF1 batch of
     # ~60,013 tuples), which 4 divides.
     pad = sum((1 << (t - 1).bit_length()) - t for t in msh["blocks"])
@@ -5356,6 +5501,7 @@ def main():
     k4 = check_k4(rel, args.seed)
     k5 = check_k5(rel, args.seed)
     k3 = check_k3(args.seed, rel.device)
+    k6 = check_k6(args.seed)
     wide = check_wide(rel, args.seed)
     del rel
     if args.kernels_only:
@@ -5475,6 +5621,16 @@ def main():
              replaces=K3_REPLACES, launches=refit_w["se_cov_grad"],
              shape=f"{SYNOPSIS_C}x{SYNOPSIS_C} l={WIDE_L} f64",
              **wide["k3_reduce"], at_phase4_shapes=k3_shapes),
+        # Every group-by probe of the cell takes the table route; the
+        # sorted route (key spaces past a block's table) runs on no driven
+        # path.
+        dict(name="group_discovery", route="cuda",
+             source="src/repro_torch/csrc/group_discovery.cu",
+             replaces=K6_REPLACES, launches=counts["group_discovery"],
+             shape=f"T={GD_T} P=1 table f64", **k6[(1, "table")],
+             other_shapes=[at(f"T={GD_T} P={n} {r} f64", k6[(n, r)])
+                           for n, r in ((16, "table"), (1, "sorted"),
+                                        (16, "sorted"))]),
     ]
     log("library_ms is null for the fused masked scan and the fused GP "
         "improve: no single PyTorch call computes either; masked_partials' "
@@ -5487,7 +5643,8 @@ def main():
         f"6's refit (which also ran {refit_counts['se_cov_gram']} Gram "
         "forwards, derivatives included); K3's kernels for any l in phase "
         "4's wide CUDA engine, its serving and its refit (Gram launches "
-        "without derivatives: all Gram launches less those with)")
+        "without derivatives: all Gram launches less those with); K6 in "
+        "phase 3's serve stream, one a group-by query")
     log(f"end to end: phase 3 {json.dumps(e2e)}; phase 6 {json.dumps(e2e6)}; "
         f"phase 5 {json.dumps(e2e5)}; phase 7 {json.dumps(e2e7)}; "
         f"phase 8 {json.dumps(e2e8)}; phase 9 {json.dumps(e2e9)};"

@@ -7,8 +7,8 @@ Every scan of a local block goes through the ``fused_masked_scan`` kernel
 wrapper (``repro_torch.kernels.fused_masked_scan.ops.eval_partials_fused``):
 on the card its kernel, which never writes the mask to memory; on the CPU
 its plain version, which is this plain form bit for bit.
-``predicate_mask`` also serves group-by discovery, which the reference
-computes outside any kernel too.
+Group-by discovery applies the same test (``snippet_mask``'s, on the same
+doubles) in its own kernel (``repro_torch.kernels.group_discovery``).
 
 ``masked_tile_fold`` is the canonical reduction of the plain scan: fixed
 (SCAN_TILE_T × SCAN_TILE_Q) tiles folded in ascending tuple-tile order. Its

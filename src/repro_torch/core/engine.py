@@ -23,10 +23,11 @@ default, ``ShardedSynopsisStore`` + ``ShardedScanPlacement`` over a mesh
 Device: the engine runs on ``device`` (``None``: the CUDA card, failing
 loudly when there is none). The relation must already live there. On the
 card every scan launches a scan kernel (``fused_masked_scan`` locally,
-``masked_partials`` under a mesh), every improve the ``gp_batch_infer``
-kernel, whatever ``use_kernels`` says, and every covariance build the
-SE-covariance kernel (``refit``'s Adam steps its gradient kernel too); on
-the CPU the plain versions run.
+``masked_partials`` under a mesh), every group discovery the
+``group_discovery`` kernel (on ``device``, whatever the placement), every
+improve the ``gp_batch_infer`` kernel, whatever ``use_kernels`` says, and
+every covariance build the SE-covariance kernel (``refit``'s Adam steps its
+gradient kernel too); on the CPU the plain versions run.
 
 Lifecycle beyond serving: ``refit`` (offline learning, Appendix A),
 ``save_synopses`` / ``load_synopses`` through a
@@ -48,12 +49,10 @@ import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.aqp import queries as Q
-from repro_torch.aqp.executor import (
-    ScanPlacement,
-    predicate_mask,
-)
+from repro_torch.aqp.executor import ScanPlacement
 from repro_torch.aqp.plan import QueryResult
 from repro_torch.aqp.relation import Relation
 from repro_torch.aqp.sampler import SampleBatches, build_sample
@@ -62,10 +61,11 @@ from repro_torch.core.synopsis import MIN_FILL_BUCKET, MIN_Q_BUCKET, Synopsis
 from repro_torch.core.types import (
     Schema,
     SnippetBatch,
-    pad_snippets,
     resolve_device,
     to_numpy,
 )
+from repro_torch.kernels import RANGE_EPS
+from repro_torch.kernels.group_discovery import ops as gd_ops
 from repro_torch.utils import tracing
 
 
@@ -91,6 +91,50 @@ class EngineConfig:
     min_fill_bucket: int = MIN_FILL_BUCKET
     min_q_bucket: int = MIN_Q_BUCKET
 
+
+def _decode(codes: np.ndarray, cols, sizes) -> tuple:
+    """Ascending mixed-radix codes → group tuples of Python ints over
+    ``cols`` (the first column most significant)."""
+    radix = np.asarray([int(sizes[c]) for c in cols], np.int64)
+    strides = np.cumprod(np.concatenate([radix[1:], [1]])[::-1])[::-1]
+    digits = (codes[:, None] // strides[None]) % radix[None]
+    return tuple(map(tuple, digits.tolist()))
+
+
+def discover_groups(x, codes, probes: SnippetBatch, groupby, sizes) -> list:
+    """The distinct group tuples, in ``np.unique(..., axis=0)``'s order, of
+    the tuples each probe admits: ``()`` where it admits none.
+
+    x: (T,L) f64 and codes: (T,C) int32 in [0, sizes), on one device;
+    probes: one COUNT snippet a probe (any device); groupby: each probe's
+    group-by columns, in order. One ``group_discovery`` launch marks every
+    probe (its plain version on the CPU), the sorted route's sort-unique
+    runs on the same device, and the marks cross to the host in ONE copy
+    through ``to_numpy`` (so ``host_copy.*`` counts it).
+    """
+    dev = x.device
+    plan = gd_ops.discovery_plan(groupby, sizes)
+    bounds = torch.stack([probes.lo - RANGE_EPS,
+                          probes.hi + RANGE_EPS]).to(dev)
+    presence, keys = gd_ops.group_discovery(x, codes, bounds[0], bounds[1],
+                                            probes.cat.to(dev), plan)
+    tracing.count("discover.table", len(groupby) - plan.n_rows)
+    tracing.count("discover.sorted", plan.n_rows)
+    if plan.n_rows:
+        pad = -plan.n_keys % 8  # the codes that follow start 8-aligned
+        host = to_numpy(torch.cat([
+            presence, presence.new_zeros(pad),
+            gd_ops.distinct_keys(keys).flatten().view(torch.uint8)]))
+        table = host[:plan.n_keys]
+        dist = host[plan.n_keys + pad:].view(np.int64).reshape(2, -1)
+    else:
+        table = to_numpy(presence)
+    out = []
+    for cols, (off, arg) in zip(groupby, plan.route.tolist()):
+        found = (np.flatnonzero(table[off:off + arg]) if off >= 0
+                 else dist[1][dist[0] == arg])
+        out.append(_decode(found, cols, sizes))
+    return out
 
 class VerdictEngine:
     def __init__(
@@ -125,6 +169,18 @@ class VerdictEngine:
             n_batches=self.config.n_batches,
             seed=self.config.seed,
         )
+        # Group discovery's tuples: the first sample batch, gathered once
+        # (the sample is fixed) and kept on the device.
+        first = torch.as_tensor(self.batches.batch_rows[0], device=self.device)
+        sample = self.batches.relation
+        self._first_x = sample.num_normalized.index_select(0, first)
+        self._first_codes = sample.cat.index_select(0, first).to(torch.int32)
+        if self.schema.n_cat and bool(
+                ((self._first_codes < 0)
+                 | (self._first_codes >= torch.tensor(
+                     self.schema.cat_sizes, device=self.device))).any()):
+            raise ValueError("the sample holds a categorical code outside "
+                             "the schema's cat_sizes")
         if store is None:
             self.store: SynopsisStore = LocalSynopsisStore(
                 self.schema, self.config, self.device)
@@ -184,10 +240,12 @@ class VerdictEngine:
     def _discover_groups_many(self, queries: Sequence[Q.AggQuery]):
         """Group-by value discovery for a whole workload in ONE probe.
 
-        Every query's COUNT-probe snippets are fused into a single padded
-        batch and evaluated with one ``predicate_mask`` pass over the first
-        sample batch. Mask columns are independent per snippet, so the
-        discovered groups equal the one-probe-at-a-time path's.
+        Every group-by query's COUNT probe (its predicates, one snippet) is
+        marked over the first sample batch by one ``group_discovery``
+        launch on the card (its plain version on the CPU); only the marks
+        cross to the host, in one copy. Each query gets the distinct group
+        tuples of the tuples its probe admits, in ``np.unique`` order:
+        ``((),)`` without a group-by, ``()`` where no tuple qualifies.
         """
         out: List[Optional[tuple]] = [None] * len(queries)
         need = []
@@ -199,33 +257,20 @@ class VerdictEngine:
         if not need:
             return out
         with tracing.span("plan.discover", queries=len(need),
-                          tuples=len(self.batches.batch_rows[0])):
-            first = self.batches.relation.take(self.batches.batch_rows[0])
-            plans = [
+                          tuples=int(self._first_x.shape[0])):
+            probes = SnippetBatch.concat([
                 Q.decompose(
                     self.schema,
                     Q.AggQuery(aggs=(Q.AggSpec("COUNT"),),
                                predicates=queries[i].predicates),
-                )
+                ).snippets
                 for i in need
-            ]
-            fused = SnippetBatch.concat([p.snippets for p in plans])
-            mask_all = to_numpy(
-                predicate_mask(first.num_normalized, first.cat,
-                               pad_snippets(fused).to(self.device))
-            ).astype(bool)
-            cat_first = to_numpy(first.cat)
-            off = 0
-            for i, plan in zip(need, plans):
-                q = queries[i]
-                mask = mask_all[:, off]
-                off += plan.snippets.n
-                cats = cat_first[mask][:, list(q.groupby)]
-                if cats.size == 0:
-                    out[i] = tuple()
-                    continue
-                uniq = np.unique(cats, axis=0)
-                out[i] = tuple(tuple(int(v) for v in row) for row in uniq)
+            ])
+            groups = discover_groups(
+                self._first_x, self._first_codes, probes,
+                [queries[i].groupby for i in need], self.schema.cat_sizes)
+            for i, g in zip(need, groups):
+                out[i] = g
         return out
 
     # ------------------------------------------------------------- execute

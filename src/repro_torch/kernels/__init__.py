@@ -35,6 +35,10 @@ Kernels:
   se_cov_grad       -- the gradient with respect to the lengthscales: the
                        reduction of those derivatives against the incoming
                        gradient (the backward of the learning path's NLL).
+  group_discovery   -- each group-by probe's group values among the first
+                       sample batch's tuples it admits: a presence table
+                       (or each tuple's code, for a sort-unique) marked on
+                       the card, one launch for a whole workload's probes.
 
 Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches``, through ``count_launch`` (under one lock: wrappers
@@ -58,7 +62,7 @@ SCAN_TILE_T = 512  # tuple-axis tile of the plain scan's fixed-order fold
 SCAN_TILE_Q = 128  # snippet-axis tile (= core.types.SNIPPET_TILE serve tiles)
 
 KERNEL_SOURCES = ("fused_masked_scan", "gp_batch_infer", "range_mask_agg",
-                  "se_covariance")
+                  "se_covariance", "group_discovery")
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -174,6 +178,7 @@ def check_tensor(t, name: str, dtype, shape, device):
 def _wrappers():
     from repro_torch.kernels.fused_masked_scan import ops as fms_ops
     from repro_torch.kernels.gp_batch_infer import ops as gp_ops
+    from repro_torch.kernels.group_discovery import ops as gd_ops
     from repro_torch.kernels.range_mask_agg import ops as rma_ops
     from repro_torch.kernels.se_covariance import ops as se_ops
 
@@ -184,7 +189,8 @@ def _wrappers():
             "se_cov_matrix": se_ops.se_cov_matrix,
             "se_cov_gram": se_ops.se_cov_gram,
             "se_cov_derivs": se_ops.se_cov_derivs,
-            "se_cov_grad": se_ops.se_cov_grad}
+            "se_cov_grad": se_ops.se_cov_grad,
+            "group_discovery": gd_ops.group_discovery}
 
 
 def count_launch(*wrappers, shapes=None, key=None):

@@ -74,6 +74,12 @@ Inputs are made from a seed with numpy. Tolerances:
     improve ladder gives one K2 launch signature (with the built library's
     ``gp_plan``) per bucket pair; the mask build over 4 and 8 shards of the
     card has no cross-shard op;
+  - group discovery (``group_discovery``) at the benchmark cell's shape
+    (599,861 tuples; returnflag, nation and all three columns), on both
+    routes: presence and keys equal to the plain version's, bitwise
+    across runs, the same groups as on the CPU; a
+    group-by ``execute_many`` launches it once, and discovery copies the
+    presence table alone to the host;
   - the launch layer on the card: qwen2.5-3b decode_32k's layer probe at
     its cell's shapes and rwkv6-3b's chunk probes, the FLOPs
     ``FlopCounterMode`` counts on the card equal to those on meta; the
@@ -2055,3 +2061,125 @@ def test_launch_moe_collectives_on_a_card_listed_four_times():
     assert out["bytes_by_kind"] == {"all-reduce": rows * cfg.d_model * 4}
     assert out["op_counts"] == {"all-reduce": 1}
     assert out["wire_bytes_total"] == 2 * rows * cfg.d_model * 4
+
+
+# ------------------------------------------------------- group discovery
+GD_T = 599_861  # the first sample batch at TPC-H SF10 (the benchmark's cell)
+GD_CATS = (3, 2, 25)  # returnflag, linestatus, nation
+
+
+def _gd_inputs(n_probes, seed):
+    """The cell's first batch (3 numeric dims, 3 categorical) and
+    ``n_probes`` COUNT probes with random windows and category sets,
+    grouped in turn by returnflag, nation and all three columns."""
+    from repro_torch.aqp import queries as Q
+    from repro_torch.core.types import SnippetBatch
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.uniform(0, 1, (GD_T, 3)), device="cuda")
+    codes = torch.as_tensor(np.stack(
+        [rng.integers(0, s, GD_T) for s in GD_CATS], 1).astype(np.int32),
+        device="cuda")
+    schema = pt_types.Schema((0.0,) * 3, (1.0,) * 3, GD_CATS, 1)
+    probes, groupby = [], []
+    for p in range(n_probes):
+        a = rng.uniform(0, 0.8, 3)
+        preds = [Q.NumRange(k, a[k], a[k] + rng.uniform(0.05, 0.2))
+                 for k in range(3) if rng.random() < 0.7]
+        if p % 5 == 4:
+            preds.append(Q.CatIn(2, tuple(rng.choice(25, 4, replace=False)
+                                          .tolist())))
+        probes.append(Q.decompose(schema, Q.AggQuery(
+            aggs=(Q.AggSpec("COUNT"),), predicates=tuple(preds))).snippets)
+        groupby.append([(0,), (2,), (0, 1, 2)][p % 3])
+    return x, codes, SnippetBatch.concat(probes), groupby
+
+
+@pytest.mark.parametrize("n_probes", [1, 16])
+@pytest.mark.parametrize("bound", ["default", 30, 0])
+def test_cuda_group_discovery_matches_plain_version(n_probes, bound,
+                                                    monkeypatch):
+    """The kernel against its plain version at the cell's shape (599,861
+    tuples; returnflag, nation and all three columns): equal presence and
+    keys, bitwise across runs, and equal groups. ``bound`` cuts the table
+    route's bound: at 30 the first two probes' tables (3 and 25 keys) fill
+    it and every later probe takes the sorted route; 0 sends every probe
+    there."""
+    from repro_torch.core.engine import discover_groups
+    from repro_torch.kernels import RANGE_EPS
+    from repro_torch.kernels.group_discovery import ops as gd_ops
+    from repro_torch.kernels.group_discovery.ref import group_discovery_ref
+
+    if bound != "default":
+        monkeypatch.setattr(gd_ops, "GD_TABLE_KEYS", bound)
+    x, codes, probes, groupby = _gd_inputs(n_probes, seed=11 + n_probes)
+    plan = gd_ops.discovery_plan(groupby, GD_CATS)
+    assert (plan.n_rows == 0) == (bound == "default" or n_probes == 1
+                                  and bound == 30)
+    lo = (probes.lo - RANGE_EPS).cuda()
+    hi = (probes.hi + RANGE_EPS).cuda()
+    member = probes.cat.cuda()
+    before = launch_counts()["group_discovery"]
+    got = gd_ops.group_discovery(x, codes, lo, hi, member, plan)
+    again = gd_ops.group_discovery(x, codes, lo, hi, member, plan)
+    torch.cuda.synchronize()
+    assert launch_counts()["group_discovery"] == before + 2
+    meta = [torch.as_tensor(a, device="cuda")
+            for a in (plan.gcol, plan.gstride, plan.route)]
+    want = group_discovery_ref(x, codes, lo, hi, member, *meta, plan.n_keys,
+                               plan.n_rows)
+    for name, g, a, w in zip(("presence", "keys"), got, again, want):
+        assert torch.equal(g, w), name
+        assert torch.equal(a, w), name
+    groups = discover_groups(x, codes, probes, groupby, GD_CATS)
+    assert groups == discover_groups(x.cpu(), codes.cpu(), probes, groupby,
+                                     GD_CATS)
+    assert all(groups), "every probe admits some tuple"
+
+
+def test_a_group_by_execute_many_launches_one_discovery_and_copies_marks():
+    """A workload of group-by and plain queries on the card: its discovery
+    is one launch and one copy to the host, the presence table's bytes,
+    and its groups equal the plain version's on the CPU; the whole
+    ``execute_many`` launches discovery once and copies the table plus the
+    answers, under 1 MB (the padded mask of the first batch alone was
+    T x 128 x 8 bytes, 6.1 MB here)."""
+    import dataclasses
+
+    from repro_torch.aqp import workload as pt_w
+    from repro_torch.core.engine import EngineConfig, VerdictEngine
+    from repro_torch.utils import tracing
+
+    cfg = EngineConfig(sample_rate=0.2, n_batches=4, capacity=128, seed=0,
+                       learning=False)
+    rel = pt_w.tpch_like(3, n_rows=150_000, device="cuda")
+    eng = VerdictEngine(rel, cfg)
+    cpu = VerdictEngine(pt_w.tpch_like(3, n_rows=150_000, device="cpu"),
+                        cfg, device="cpu")
+    qs = pt_w.tpch_workload(4, rel.schema, 12)
+    qs = [dataclasses.replace(q, groupby=(0, 2)) if i % 4 == 3 else q
+          for i, q in enumerate(qs)]
+    n_grouped = sum(bool(q.groupby) for q in qs)
+    assert n_grouped >= 2 and n_grouped < len(qs)
+    torch.cuda.synchronize()
+    tracing.reset()
+    tracing.enable()
+    try:
+        before = launch_counts()["group_discovery"]
+        groups = eng._discover_groups_many(qs)
+        copies = tracing.counters()
+        tracing.reset()
+        eng.execute_many(qs)
+        torch.cuda.synchronize()
+        flush = tracing.counters()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert groups == cpu._discover_groups_many(qs)
+    plan_keys = sum(3 if q.groupby == (0,) else 75 for q in qs if q.groupby)
+    assert copies["host_copy.count"] == 1
+    assert copies["host_copy.bytes"] == plan_keys
+    assert copies["discover.table"] == n_grouped
+    assert copies["discover.sorted"] == 0
+    assert launch_counts()["group_discovery"] == before + 2
+    assert flush["host_copy.bytes"] < 1 << 20
